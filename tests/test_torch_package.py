@@ -1,0 +1,56 @@
+"""Package-level checks of the PyTorch port that need no JAX reference."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+from crypto_rec_tpu_torch.ops.oracle import exact_nearest, recall_at_k
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    """Importing the port and every submodule loads no jax* or ml_dtypes
+    module (run in a fresh interpreter: the test harness imports jax)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import crypto_rec_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0].startswith('jax') or k.startswith('ml_dtypes'))\n"
+        "print(len([k for k in sys.modules if k.startswith(p.__name__)]), bad)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_mods, bad = res.stdout.split(" ", 1)
+    assert int(n_mods) >= 15
+    assert bad.strip() == "[]", bad
+
+
+def test_planted_corpus_protocol():
+    """Shapes, planted rows next to their query, and exact-NN recall of the
+    planted truth (the recall protocol of the CF bench)."""
+    g = torch.Generator().manual_seed(0)
+    corpus, queries, true_idx = planted_clustered_corpus(g, 5000, 32, 20, 10,
+                                                         n_chunks=7)
+    assert corpus.shape == (5000, 32) and queries.shape == (20, 32)
+    assert true_idx.dtype == torch.int32
+    assert torch.equal(true_idx[3], torch.arange(30, 40, dtype=torch.int32))
+    planted = corpus[:200].view(20, 10, 32) - queries[:, None, :]
+    assert float(planted.std()) < 0.2                      # 0.15 noise
+    _, idx = exact_nearest(queries, corpus, "cosine", 10, block_rows=8)
+    assert recall_at_k(idx, true_idx) > 0.95
+    again = planted_clustered_corpus(torch.Generator().manual_seed(0), 5000, 32,
+                                     20, 10, n_chunks=7)[0]
+    assert torch.equal(again, corpus)
+
+
+def test_recall_at_k_ignores_pads():
+    true_idx = torch.tensor([[1, 2], [3, 4]])
+    got = torch.tensor([[2, -1, 1], [-1, -1, 3]])
+    assert recall_at_k(got, true_idx) == 0.75
