@@ -1,11 +1,13 @@
 """Index checkpointing in the JAX package's npz archive format (v3).
 
 An archive holds a JSON `meta` blob (version, metric, n_buckets, n_rows,
-k, L, packed_dtypes) and the index arrays.  bf16 has no numpy dtype
-without ml_dtypes, so bf16 slabs are stored as their uint16 bit view with
-"bfloat16" recorded in meta["packed_dtypes"] — the same encoding the JAX
-package writes, so archives move between the two packages both ways.
-Cosine indexes only.
+k, L, w for euclidean tables, packed_dtypes) and the index arrays: the hash
+family (proj; euclidean offsets and weights), the CSR tables, euclidean
+`detailed` fingerprints, and the packed fields that are present.  bf16 has
+no numpy dtype without ml_dtypes, so bf16 slabs are stored as their uint16
+bit view with "bfloat16" recorded in meta["packed_dtypes"] — the same
+encoding the JAX package writes, so archives move between the two packages
+both ways.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from crypto_rec_tpu_torch.models.lsh.index import LshIndex, index_from_numpy
 
 _FORMAT_VERSION = 3
-_PACKED_FIELDS = ("packed", "packed_rows", "packed_gscale")
+_PACKED_FIELDS = ("packed", "packed_rows", "packed_detailed", "packed_gscale",
+                  "packed_aug_scale")
 
 
 def _encode(t: torch.Tensor):
@@ -30,22 +33,26 @@ def _encode(t: torch.Tensor):
 
 
 def save_index(path: str, index: LshIndex) -> None:
-    if index.metric != "cosine":
-        raise NotImplementedError("euclidean indexes (ROADMAP Queue 1 item 10)")
+    fam = index.family
     meta = {
         "version": _FORMAT_VERSION,
         "metric": index.metric,
         "n_buckets": index.n_buckets,
         "n_rows": index.n_rows,
-        "k": index.family.k,
-        "L": index.family.L,
+        "k": fam.k,
+        "L": fam.L,
         "packed_dtypes": {},
     }
     arrays = {
         name: _encode(getattr(index, name))[0]
         for name in ("bucket_ids", "sorted_rows", "bucket_starts")
     }
-    arrays["proj"] = _encode(index.family.proj)[0]
+    arrays["proj"] = _encode(fam.proj)[0]
+    if index.metric != "cosine":
+        meta["w"] = fam.w
+        arrays["offsets"] = _encode(fam.offsets)[0]
+        arrays["weights"] = _encode(fam.weights)[0]
+        arrays["detailed"] = _encode(index.detailed)[0]
     for f in _PACKED_FIELDS:
         t = getattr(index, f)
         if t is not None:
@@ -59,4 +66,10 @@ def load_index(path: str, device) -> LshIndex:
         meta = json.loads(str(z["meta"]))
         if meta["version"] not in (1, 2, _FORMAT_VERSION):
             raise ValueError(f"unsupported index version {meta['version']}")
+        if meta["metric"] != "cosine" and meta["version"] < 3:
+            raise ValueError(
+                "euclidean index archives before v3 store raw h-tuples; "
+                "rebuild and re-save the index (detailed hashes are now "
+                "[L, n] fingerprints)"
+            )
         return index_from_numpy(meta, z, device)

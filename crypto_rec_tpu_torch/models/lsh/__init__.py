@@ -1,1 +1,2 @@
-"""Cosine hyperplane LSH and its CSR / packed-slab index."""
+"""Cosine hyperplane and euclidean p-stable LSH, the CSR / packed-slab index,
+the hypercube and the MultiCube."""

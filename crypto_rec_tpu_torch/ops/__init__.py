@@ -1,1 +1,2 @@
-"""Distances, top-k, the exact-NN oracle and the hand-written kernels."""
+"""Distances, top-k, the exact-NN oracle, Hamming probe schedules and the
+hand-written kernels."""

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-Every `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into ONE shared
-library with a plain C interface, loaded with `ctypes`.  The library's file
+Every `csrc/*.cu` source is compiled by its own `nvcc` for `sm_90a`, all
+started together, and the objects are linked into ONE shared library with
+a plain C interface, loaded with `ctypes`.  The library's file
 name carries a content hash of the sources and flags, so a stale build is
 never loaded; the build happens at first use, from the checkout's sources
 alone, into `build/torch_kernels/` at the repository root.
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -62,30 +63,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcrt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check_run(rc: int, stdout: str, stderr: str, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed ({rc}):\n{stdout}\n{stderr}")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernel library, compiled on first use (raises on failure)."""
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        # compile to a private name, then rename: concurrent builds never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
+        # compile and link in a private directory, then rename: concurrent
+        # builds never load a half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            jobs = [
+                (src, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                     os.path.join(tmp, src.stem + ".o"), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                for src in _sources() if src.suffix == ".cu"
+            ]
+            for src, job in jobs:
+                stdout, stderr = job.communicate()
+                _check_run(job.returncode, stdout, stderr, f"nvcc {src.name}")
+            lib_tmp = os.path.join(tmp, out.name)
             res = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp,
+                 *(os.path.join(tmp, src.stem + ".o") for src, _ in jobs)],
                 capture_output=True, text=True,
             )
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-                )
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            _check_run(res.returncode, res.stdout, res.stderr, "nvcc link")
+            os.replace(lib_tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -21,10 +21,13 @@ The epilogue (`slab_topk`, `_dedup_topk_pairs`) is plain torch, as the JAX
 package ran it outside Pallas.  Stage 1 here is an EXACT `torch.topk` per
 table window where the TPU ran `approx_max_k` (recall target 0.9): the
 port's stage-1 survivors are a superset of the TPU's.  Off the TPU,
-`approx_max_k` is exact, so the CPU references agree.  Cosine only: slabs
-are pre-normalized by pack_index, so the dot IS the similarity (int8
-global-scale slabs rank raw dots; callers dequantize scores with the
-stored scalar).
+`approx_max_k` is exact, so the CPU references agree.  Cosine slabs are
+pre-normalized by pack_index, so the dot IS the similarity; euclidean
+slabs are augmented ([x, -|x|^2/2, 0-pad]) and dotted with [q, s, 0-pad],
+so the dot is the rank x.q - |x|^2/2 (`packed_retrieve_pallas_euclid`).
+int8 global-scale slabs rank raw dots; callers dequantize scores with the
+stored scalar.  shared_slab=True is the hypercube form: every window reads
+one slab (for the MultiCube, C cube segments laid end to end).
 """
 
 from __future__ import annotations
@@ -240,23 +243,51 @@ def slab_topk(
     return _dedup_topk_pairs(s1, ids1, n_rows, top_k)
 
 
-def _window_offsets(bucket_starts, q_buckets, per_table):
-    """Per (query, table) window start and size: the JAX package's
-    pseudo-random offset into oversized buckets (int32 wraparound,
-    floor-mod), computed in int64 and wrapped to int32."""
-    L = bucket_starts.shape[0]
-    l_idx = torch.arange(L, device=q_buckets.device)
+def _window_offsets(bucket_starts, q_buckets, per_table, salt=None):
+    """Per (query, window) start and size: the JAX package's pseudo-random
+    offset into oversized buckets (int32 wraparound, floor-mod), computed
+    in int64 and wrapped to int32.
+
+    bucket_starts: [T, n_buckets + 1], the CSR offsets window t reads —
+    one row per table for the LSH index; the cubes pass their one row
+    expanded to T.  salt: [T] window salts, arange(T) by default (the
+    table index; the cubes salt by probe index, offset per cube)."""
+    T = q_buckets.shape[1]
+    t_idx = torch.arange(T, device=q_buckets.device)
+    salt = t_idx if salt is None else salt.long()
     qb = q_buckets.long()
-    start = bucket_starts[l_idx[None, :], qb].long()                    # [q, L]
-    end = bucket_starts[l_idx[None, :], qb + 1].long()
+    start = bucket_starts[t_idx[None, :], qb].long()                    # [q, T]
+    end = bucket_starts[t_idx[None, :], qb + 1].long()
     size = end - start
-    mix = (qb * -1640531527) ^ (l_idx[None, :] * 40503)
+    mix = (qb * -1640531527) ^ (salt[None, :] * 40503)
     mix = (mix + (1 << 31)) % (1 << 32) - (1 << 31)       # low 32 bits, signed
     # jnp.abs on int32 leaves INT32_MIN negative
     amix = torch.where(mix == -(1 << 31), mix, mix.abs())
     s0 = start + torch.remainder(amix, torch.clamp(size - per_table, min=0) + 1)
     sizes = torch.clamp(end - s0, max=per_table)
     return s0.to(torch.int32), sizes.to(torch.int32)
+
+
+def augment_queries(queries: torch.Tensor, aug_scale, d_aug: int) -> torch.Tensor:
+    """[q, d] raw euclidean queries -> [q, d_aug] f32 rows [q, s, 0-pad]:
+    their plain dot with an augmented slab row is the rank x.q - |x|^2/2
+    (int8 slabs: in units of the global scale)."""
+    qv = queries.float()
+    q, d = qv.shape
+    s = torch.as_tensor(aug_scale, dtype=torch.float32, device=qv.device)
+    return torch.cat([qv, s.reshape(1, 1).expand(q, 1),
+                      torch.zeros(q, d_aug - d - 1, device=qv.device)], dim=1)
+
+
+def rank_to_distance(rank, ids, queries, gscale):
+    """Top-k ranks -> -sqrt(max(|q|^2 - 2 rank, 0)) = -distance, -inf on
+    pads; int8 ranks are dequantized with the global scale first."""
+    if gscale is not None:
+        rank = rank * gscale
+    qv = queries.float()
+    qsq = torch.sum(qv * qv, dim=1, keepdim=True)
+    score = -torch.sqrt(torch.clamp(qsq - 2.0 * rank, min=0.0))
+    return torch.where(ids >= 0, score, float("-inf")), ids
 
 
 def packed_retrieve_pallas(
@@ -285,3 +316,56 @@ def packed_retrieve_pallas(
     dots, a0 = slab_window_dots(packed, s0, sizes, qv, per_table, mask=strict)
     return slab_topk(dots, a0, packed_rows, n_rows, top_k, exact=strict,
                      stage1_width=stage1_width, stage1_per_table=stage1_per_table)
+
+
+def euclid_window_offsets(bucket_starts, packed_detailed, q_buckets, q_detailed,
+                          per_table):
+    """Window starts of the euclidean tables: the query's exact-fingerprint
+    run in the (bucket, fingerprint)-sorted slab when the fingerprint plane
+    is given, else the salted offset of `_window_offsets`."""
+    if packed_detailed is None or q_detailed is None:
+        return _window_offsets(bucket_starts, q_buckets, per_table)
+    from crypto_rec_tpu_torch.models.lsh.index import _fp_run_starts
+
+    L, n_pad = packed_detailed.shape
+    l_idx = torch.arange(L, device=q_buckets.device)
+    qb = q_buckets.long()
+    start = bucket_starts[l_idx[None, :], qb]                           # [q, L]
+    end = bucket_starts[l_idx[None, :], qb + 1]
+    flat_fp = packed_detailed.reshape(-1)
+    base = l_idx[None, :] * n_pad
+    s0 = _fp_run_starts(lambda p: flat_fp[base + p], start, end, q_detailed, n_pad)
+    return s0, torch.clamp(end - s0, max=per_table).to(torch.int32)
+
+
+def packed_retrieve_pallas_euclid(
+    packed: torch.Tensor,         # [L, n_pad, d_aug] AUGMENTED slabs
+    packed_rows: torch.Tensor,    # [L, n_pad] int32, sentinel n past the end
+    packed_detailed,              # [L, n_pad] fingerprints or None
+    bucket_starts: torch.Tensor,  # [L, n_buckets + 1]
+    n_rows: int,
+    d: int,                       # original (un-augmented) dimensionality
+    queries: torch.Tensor,        # [q, d] RAW euclidean queries
+    q_buckets: torch.Tensor,      # [q, L]
+    q_detailed,                   # [q, L] fingerprints or None
+    gscale,                       # f32 scalar (int8 slabs) or None
+    aug_scale,                    # f32 scalar: the norm column's query entry
+    top_k: int,
+    per_table: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Euclidean retrieval over AUGMENTED slabs (pack_index augment=True):
+    K1's plain dot against the augmented query [q, s, 0-pad] is the
+    monotone rank x.q - |x|^2/2, so euclidean rides the same maskless
+    windows and per-table stage 1 as cosine; the top_k ranks map to
+    -sqrt(max(|q|^2 - 2 rank, 0)) = -distance.  Windows start at the
+    query's fingerprint run when the plane is given; the lanes past it are
+    the aligned-overfetch multiprobe, scored by true distance.  The name
+    is the JAX function's."""
+    if queries.shape[1] != d:
+        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
+    s0, sizes = euclid_window_offsets(bucket_starts, packed_detailed, q_buckets,
+                                      q_detailed, per_table)
+    q_aug = augment_queries(queries, aug_scale, packed.shape[2])
+    dots, a0 = slab_window_dots(packed, s0, sizes, q_aug, per_table, mask=False)
+    rank, ids = slab_topk(dots, a0, packed_rows, n_rows, top_k, exact=False)
+    return rank_to_distance(rank, ids, queries, gscale)

@@ -1,11 +1,14 @@
 """Serving CLI: answer queries from a checkpointed index.
 
-Mode `retrieve` — nearest-neighbour lookups against a saved cosine LSH
-index + corpus (archives from either package):
+Mode `retrieve` — nearest-neighbour lookups against a saved cosine or
+euclidean LSH index + corpus (archives from either package):
 
     python -m crypto_rec_tpu_torch.serve_cli retrieve \\
         --index idx.npz --corpus corpus.npz --queries q.csv \\
         --top-k 10 --pack -o out.tsv
+
+A euclidean index is served with `--pack --augment` (augmented bf16 slabs,
+scores are negated distances) unless its archive carries augmented slabs.
 
 corpus.npz holds {"vectors": [n, d]}; queries are "id,v1,v2,..." rows; each
 output line is the query id followed by tab-separated "row:score" pairs.
@@ -40,6 +43,11 @@ def build_argparser() -> argparse.ArgumentParser:
              "restore, unless the archive already carries slabs",
     )
     r.add_argument(
+        "--augment", action="store_true",
+        help="with --pack on a euclidean index: norm-augmented slabs, so "
+             "retrieval rides the slab kernel",
+    )
+    r.add_argument(
         "--fast-int8", action="store_true",
         help="global-scale int8 indexes: rank raw dots and dequantize the "
              "scores (skip the exact rerank)",
@@ -68,7 +76,7 @@ def _retrieve(args) -> int:
         if index.packed is not None:
             print("restored packed slabs from checkpoint", file=sys.stderr)
         else:
-            index = pack_index(index, corpus)
+            index = pack_index(index, corpus, augment=args.augment)
     t0 = time.perf_counter()
     scores, rows = retrieve_topk(
         index, torch.from_numpy(queries).to(dev), corpus,

@@ -9,29 +9,70 @@ import numpy as np
 import torch
 
 
-def handover(jidx):
-    """JAX LshIndex -> (meta, arrays) for the port's index_from_numpy; bf16
-    slabs cross as their uint16 bit view, as in the checkpoint format."""
-    meta = {
-        "metric": jidx.metric, "n_buckets": jidx.n_buckets,
-        "n_rows": jidx.n_rows, "k": jidx.family.k, "L": jidx.family.L,
-        "packed_dtypes": {},
-    }
-    arrays = {
-        "proj": np.asarray(jidx.family.proj),
-        "bucket_ids": np.asarray(jidx.bucket_ids),
-        "sorted_rows": np.asarray(jidx.sorted_rows),
-        "bucket_starts": np.asarray(jidx.bucket_starts),
-    }
-    for f in ("packed", "packed_rows", "packed_scale", "packed_gscale"):
-        a = getattr(jidx, f)
+_PACKED = ("packed", "packed_rows", "packed_detailed", "packed_scale",
+           "packed_sqnorm", "packed_gscale", "packed_aug_scale")
+
+
+def _family(fam, meta, arrays, prefix=""):
+    meta.update(k=fam.k, L=fam.L)
+    arrays[prefix + "proj"] = np.asarray(fam.proj)
+    if hasattr(fam, "offsets"):                     # p-stable
+        meta["w"] = fam.w
+        arrays[prefix + "offsets"] = np.asarray(fam.offsets)
+        arrays[prefix + "weights"] = np.asarray(fam.weights)
+
+
+def _fields(obj, names, meta, arrays, prefix=""):
+    """Copy obj's non-None array fields; bf16 crosses as its uint16 bit
+    view with "bfloat16" recorded, as in the checkpoint format."""
+    for f in names:
+        a = getattr(obj, f, None)
         if a is None:
             continue
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             a = a.view(np.uint16)
-            meta["packed_dtypes"][f] = "bfloat16"
-        arrays[f] = a
+            meta["packed_dtypes"][prefix + f] = "bfloat16"
+        arrays[prefix + f] = a
+
+
+def handover(jidx):
+    """JAX LshIndex -> (meta, arrays) for the port's index_from_numpy."""
+    meta = {"metric": jidx.metric, "n_buckets": jidx.n_buckets,
+            "n_rows": jidx.n_rows, "packed_dtypes": {}}
+    arrays = {}
+    _family(jidx.family, meta, arrays)
+    _fields(jidx, ("bucket_ids", "sorted_rows", "bucket_starts", "detailed")
+            + _PACKED, meta, arrays)
+    return meta, arrays
+
+
+_CUBE = ("mix_mul", "mix_add", "vertices", "sorted_rows", "bucket_starts")
+
+
+def cube_handover(jcube):
+    """JAX Hypercube -> (meta, arrays) for the port's hypercube_from_numpy."""
+    meta = {"metric": jcube.metric, "n_rows": jcube.n_rows, "packed_dtypes": {}}
+    arrays = {}
+    _family(jcube.family, meta, arrays)
+    meta["k"] = jcube.k
+    _fields(jcube, _CUBE + _PACKED, meta, arrays)
+    return meta, arrays
+
+
+def multicube_handover(jmc):
+    """JAX MultiCube -> (meta, arrays) for the port's multicube_from_numpy:
+    the shared slab, plus each cube's arrays under "cube{ci}."."""
+    meta = {"metric": jmc.metric, "k": jmc.k, "n_rows": jmc.n_rows,
+            "n_cubes": jmc.n_cubes, "n_pad": jmc.n_pad, "packed_dtypes": {}}
+    arrays = {}
+    _fields(jmc, ("packed", "packed_rows", "bucket_starts", "packed_gscale",
+                  "packed_aug_scale"), meta, arrays)
+    for ci, cube in enumerate(jmc.cubes):
+        _family(cube.family, {}, arrays, prefix=f"cube{ci}.")
+        if jmc.metric == "euclidean":
+            meta["w"] = cube.family.w
+        _fields(cube, _CUBE, meta, arrays, prefix=f"cube{ci}.")
     return meta, arrays
 
 

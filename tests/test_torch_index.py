@@ -1,5 +1,7 @@
-"""Cosine index build, packing and checkpoints: the port against the JAX
-package on one corpus, with JAX's hyperplanes handed over.
+"""Index build, packing and checkpoints: the port against the JAX package
+on one corpus, with JAX's hash parameters handed over (cosine here;
+euclidean build and packing in tests/test_torch_pstable.py, euclidean
+archives here).
 
 CSR tables must be exactly equal.  int8 slab elements may sit one
 quantization step off in at most 0.01% of elements (the last bit of a row
@@ -21,7 +23,7 @@ from crypto_rec_tpu_torch import checkpoint
 from crypto_rec_tpu_torch.models.lsh import index as port_index
 from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
 
-from _torch_parity import handover, to_np
+from _torch_parity import assert_topk_match, handover, to_np
 
 N, D, K, L = 4096, 128, 5, 5
 
@@ -133,3 +135,62 @@ def test_per_row_int8_archive_is_refused(built):
                               scale_mode="row")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         port_index.index_from_numpy(*handover(jp), torch.device("cpu"))
+
+
+@pytest.fixture(scope="module")
+def euclid():
+    rng = np.random.default_rng(11)
+    x = (2.0 * rng.normal(size=(N, D))).astype(np.float32)
+    jidx = jax_index.build_index(
+        jax.random.PRNGKey(2), jnp.asarray(x), "euclidean", k=4, L=3,
+        lsh_bucket_div=4, euclidean_h_w=8.0,
+    )
+    return x, jidx
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_euclidean_checkpoint_jax_to_port(euclid, dtype, tmp_path):
+    """A JAX-written euclidean archive (p-stable family, fingerprints,
+    augmented slabs) loads into the port bit for bit."""
+    x, jidx = euclid
+    jp = jax_index.pack_index(jidx, jnp.asarray(x), dtype=jnp.dtype(dtype), pad=1024,
+                              augment=True)
+    path = str(tmp_path / "idx.npz")
+    jax_ckpt.save_index(path, jp)
+    got = checkpoint.load_index(path, torch.device("cpu"))
+    assert (got.metric, got.n_buckets, got.n_rows) == ("euclidean", N // 4, N)
+    assert (got.family.k, got.family.L, got.family.w) == (4, 3, 8.0)
+    for f in ("proj", "offsets", "weights"):
+        np.testing.assert_array_equal(getattr(got.family, f).numpy(),
+                                      np.asarray(getattr(jp.family, f)), err_msg=f)
+    for f in ("bucket_ids", "sorted_rows", "bucket_starts", "detailed", "packed_rows",
+              "packed_detailed", "packed_aug_scale"):
+        np.testing.assert_array_equal(to_np(getattr(got, f)), to_np(getattr(jp, f)),
+                                      err_msg=f)
+    assert got.packed.dtype == port_index.pack_dtype(dtype)
+    np.testing.assert_array_equal(to_np(got.packed), to_np(jp.packed))
+    assert (got.packed_gscale is None) == (dtype != "int8")
+
+
+def test_euclidean_checkpoint_port_to_jax(euclid, tmp_path):
+    """A port-written euclidean archive loads in JAX, and both packages
+    retrieve the same top-k from it."""
+    x, jidx = euclid
+    fam = port_index.family_from_numpy(*handover(jidx), torch.device("cpu"))
+    pidx = port_index.build_index(None, torch.from_numpy(x), "euclidean", 4, 3,
+                                  lsh_bucket_div=4, euclidean_h_w=8.0, family=fam)
+    pp = port_index.pack_index(pidx, torch.from_numpy(x), dtype=torch.int8, pad=1024,
+                               augment=True)
+    path = str(tmp_path / "idx.npz")
+    checkpoint.save_index(path, pp)
+    back = jax_ckpt.load_index(path)
+    assert back.metric == "euclidean" and back.family.w == 8.0
+    for f in ("detailed", "sorted_rows", "packed_detailed", "packed"):
+        np.testing.assert_array_equal(to_np(getattr(back, f)), to_np(getattr(pp, f)))
+    assert float(back.packed_aug_scale) == float(pp.packed_aug_scale)
+    qs = x[:16] + 0.05 * np.random.default_rng(1).normal(size=(16, D)).astype(np.float32)
+    want = jax_index.retrieve_topk(back, jnp.asarray(qs), jnp.asarray(x), top_k=10,
+                                   per_table=200)
+    got = port_index.retrieve_topk(pp, torch.from_numpy(qs), torch.from_numpy(x),
+                                   top_k=10, per_table=200)
+    assert_topk_match(*want, *got, rtol=1e-5, atol=1e-5)

@@ -206,3 +206,41 @@ def test_serve_cli_answers_from_a_jax_checkpoint(data, tmp_path):
             got_i[q, j], got_s[q, j] = int(r), float(s)
     # scores are printed with 5 decimals
     assert_topk_match(ws, wi, got_s, got_i, rtol=0, atol=1e-5 + 5e-6)
+
+
+def test_serve_cli_augment_answers_from_a_jax_euclidean_checkpoint(data, tmp_path):
+    """A JAX-written euclidean archive (unpacked) serves through the port's
+    `retrieve --pack --augment`: bf16 augmented slabs, 2x over-fetch, exact
+    rerank, so the scores are true negated distances; the top-k matches
+    JAX's own augmented kernel branch on the same archive."""
+    corpus, qs = data["nset"][0], data["qset"][0]
+    jidx = jax_index.build_index(jax.random.PRNGKey(6), jnp.asarray(corpus), "euclidean",
+                                 k=4, L=4, lsh_bucket_div=4, euclidean_h_w=8.0)
+    jax_ckpt.save_index(str(tmp_path / "idx.npz"), jidx)
+    np.savez(tmp_path / "corpus.npz", vectors=corpus)
+    with open(tmp_path / "q.csv", "w") as f:
+        for i, v in enumerate(qs):
+            f.write(",".join([f"q{i}"] + [repr(float(t)) for t in v]) + "\n")
+    rc = serve_cli.main([
+        "retrieve", "--index", str(tmp_path / "idx.npz"),
+        "--corpus", str(tmp_path / "corpus.npz"), "--queries", str(tmp_path / "q.csv"),
+        "--top-k", "10", "--per-table", str(PT), "--pack", "--augment",
+        "-o", str(tmp_path / "out.tsv"),
+    ])
+    assert rc == 0
+    lines = (tmp_path / "out.tsv").read_text().splitlines()
+    assert len(lines) == Q
+    jp = jax_index.pack_index(jidx, jnp.asarray(corpus), augment=True)   # bf16
+    ws, wi = jax_index.retrieve_topk(jp, jnp.asarray(qs), jnp.asarray(corpus),
+                                     top_k=10, per_table=PT)
+    got_i = np.full((Q, 10), -1, np.int32)
+    got_s = np.full((Q, 10), -np.inf, np.float32)
+    for q, line in enumerate(lines):
+        toks = line.split("\t")
+        assert toks[0] == f"q{q}"
+        for j, pair in enumerate(toks[1:]):
+            r, s = pair.split(":")
+            got_i[q, j], got_s[q, j] = int(r), float(s)
+    assert (got_s[:, 0] < 0).all()                 # negated distances
+    # scores are printed with 5 decimals
+    assert_topk_match(ws, wi, got_s, got_i, rtol=1e-5, atol=1e-5 + 5e-6)
