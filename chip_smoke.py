@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's serving paths at `bench.py`'s operating points on one
-2M x 128 planted corpus on the card, in eleven phases; each phase raises
+2M x 128 planted corpus on the card, in twelve phases; each phase raises
 on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
@@ -29,12 +29,21 @@ on failure:
      probes), euclidean MultiCube (C = 3, 24 probes), each with its
      recall@10 floor (CUBE_LEGS);
  11. serving: `serve_cli retrieve --pack --augment` answers three requests
-     from a saved euclidean index.
+     from a saved euclidean index;
+ 12. the probe kernels of benchmarks/experiments/ (P1-P6) on one cosine
+     index (k = 13, L = 8, int8 and bf16 slabs) at the probes' point,
+     q = 8,192 (P6: 32,768): the binned, int4, variant and blocked kernels
+     and K1 without the mask, each against its plain version (dots within
+     rtol 1e-5 / atol 1e-4, i8_dot and load_floor exact, binned winners
+     equal away from near-ties) on 2,048 queries and timed against it;
+     the recall of each retrieval path against its plain path (within
+     0.002); then one counted run of the six probes' run_* functions.
 
 Each kernel wrapper counts its launches.  The counts are zeroed just before
 each path's counted run (phase 5: build, pack, retrieve and CF-score 8,192
 users; phases 9 and 10: build, pack and retrieve; phases 6-7 and 11 as
-wholes) and read just after it; each kernel of the path must show > 0.
+wholes; phase 12: the six probes) and read just after it; each kernel of
+the path must show > 0.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, the new geometries and each path's
@@ -68,18 +77,9 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, reps=5):
     """Median device time of fn() over reps runs (CUDA events), warm."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from crypto_rec_tpu_torch.experiments._common import timed
+
+    return timed(fn, torch.device("cuda"), reps)[0]
 
 
 def wall_ms(fn, reps=5):
@@ -176,10 +176,15 @@ CUBE_LEGS = (
 
 
 def _counters():
+    from crypto_rec_tpu_torch.ops.kernels.binned import binned_dots
+    from crypto_rec_tpu_torch.ops.kernels.blkslab import blk_window_dots
+    from crypto_rec_tpu_torch.ops.kernels.int4slab import slab_window_dots_int4
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
+    from crypto_rec_tpu_torch.ops.kernels.slabvariants import slab_window_variant
 
-    return signproj_bucket_ids, slab_window_dots
+    return (signproj_bucket_ids, slab_window_dots, binned_dots, slab_window_dots_int4,
+            slab_window_variant, blk_window_dots)
 
 
 def zero_counts():
@@ -464,6 +469,256 @@ def phase11(eidx, corpus, q_host, true_host):
     return dict(launches=launches, requests=out)
 
 
+# the probe kernels' operating point (benchmarks/experiments/): cosine
+# k = 13, L = 8, window 488, q = 8,192 (P6: 32,768); kernel-vs-plain errors
+# on the first CHECK_Q queries
+PQ, P6Q, CHECK_Q, RECALL_TOL = 8192, 32768, 2048, 0.002
+DOT_TOL = dict(rtol=1e-5, atol=1e-4)      # summation order only (as phase 8)
+
+
+def _close(label, got, want):
+    """Dots within DOT_TOL -> max |err|; raises otherwise."""
+    if got.shape != want.shape or not torch.allclose(got, want, **DOT_TOL):
+        raise AssertionError(f"{label}: kernel and plain differ beyond rtol 1e-5, atol 1e-4")
+    return float((got - want).abs().max())
+
+
+def _same_recall(label, ids_k, ids_p, truth):
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    rk, rp = recall_at_k(ids_k, truth), recall_at_k(ids_p, truth)
+    log(f"phase 12 {label}: recall@{TOP_K} kernel path {rk:.4f}, plain path {rp:.4f}")
+    if abs(rk - rp) > RECALL_TOL:
+        raise AssertionError(f"{label}: kernel recall {rk:.4f} vs plain {rp:.4f}")
+    return dict(recall=rk, plain_recall=rp)
+
+
+def _timed_pair(kern, plain):
+    return dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=3))
+
+
+def check_binned(p):
+    """P3 binned dots against the plain version at nbins 128 and 256:
+    vals within DOT_TOL, aligned starts equal, no winning lane differing
+    where the bin's best and second-best dots differ by more than the
+    tolerance; times at q = PQ; the recall of both retrieval paths."""
+    from crypto_rec_tpu_torch.ops.kernels.binned import (
+        binned_dots, binned_dots_plain, binned_topk,
+    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        slab_window_dots_plain, window_len,
+    )
+
+    dname = str(p.packed.dtype)[6:]
+    c = (p.packed, p.s0[:CHECK_Q], p.qv[:CHECK_Q], p.per_table)
+    dots, _ = slab_window_dots_plain(c[0], c[1], None, c[2], c[3], mask=False)
+    out = []
+    for nbins in (128, 256):
+        vk, pk, ak = binned_dots(*c, nbins)
+        vp, pp, ap = binned_dots_plain(*c, nbins)
+        torch.cuda.synchronize()
+        if not torch.equal(ak, ap):
+            raise AssertionError("binned: aligned starts differ")
+        err = _close(f"binned {dname} nbins {nbins}", vk, vp)
+        top2 = torch.topk(dots.reshape(CHECK_Q, -1, nbins), 2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > DOT_TOL["atol"] + DOT_TOL["rtol"] * top2[:, 0].abs()
+        bad = int(((pk != pp) & clear).sum())
+        if bad:
+            raise AssertionError(f"binned {dname} nbins {nbins}: {bad} winners differ")
+        a = (p.packed, p.s0, p.qv, p.per_table, nbins)
+        res = dict(geometry=f"{dname} nbins {nbins}, q = {PQ}", max_abs_err=err,
+                   pos_near_ties=int((~clear).sum()),
+                   **_timed_pair(lambda: binned_dots(*a), lambda: binned_dots_plain(*a)))
+        win = window_len(p.per_table)
+        ids = [binned_topk(*f(*a), p.packed_rows, win, p.n_rows, TOP_K)[1]
+               for f in (binned_dots, binned_dots_plain)]
+        res.update(_same_recall(f"P3 binned {dname} nbins {nbins}", *ids, p.true_idx))
+        log(f"phase 12 binned_dots {dname} nbins {nbins}: max |err| {err:.3g} over "
+            f"{CHECK_Q} queries, 0 winners differ ({res['pos_near_ties']} near-tie bins "
+            f"not compared); q={PQ}: kernel {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms")
+        out.append(res)
+    return out
+
+
+def check_int4(p):
+    """P6 int4 dots against the plain version (DOT_TOL), times at q = P6Q,
+    recall of both retrieval paths."""
+    from crypto_rec_tpu_torch.ops.kernels.int4slab import (
+        repack_int4, slab_topk_int4, slab_window_dots_int4, slab_window_dots_int4_plain,
+    )
+
+    p4 = repack_int4(p.packed)
+    c = (p4, p.s0[:CHECK_Q], p.qv[:CHECK_Q], p.per_table)
+    (dk, ak), (dp, ap) = slab_window_dots_int4(*c), slab_window_dots_int4_plain(*c)
+    torch.cuda.synchronize()
+    if not torch.equal(ak, ap):
+        raise AssertionError("int4: aligned starts differ")
+    err = _close("int4 dots", dk, dp)
+    a = (p4, p.s0, p.qv, p.per_table)
+    res = dict(geometry=f"uint8 {list(p4.shape)}, q = {P6Q}", max_abs_err=err,
+               **_timed_pair(lambda: slab_window_dots_int4(*a),
+                             lambda: slab_window_dots_int4_plain(*a)))
+    ids = [slab_topk_int4(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
+           for f in (slab_window_dots_int4, slab_window_dots_int4_plain)]
+    res.update(_same_recall("P6 int4", *ids, p.true_idx))
+    log(f"phase 12 slab_window_dots_int4: max |err| {err:.3g} over {CHECK_Q} queries; "
+        f"q={P6Q}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+    return res
+
+
+def check_variants(p16, p8):
+    """P2 / P4 variant modes against their plain versions: load_floor
+    output and XOR fold exact (bf16 and int8), rounded_query (bf16) within
+    DOT_TOL, i8_dot (int8) bit for bit; times at q = PQ; the recall of the
+    i8_dot retrieval path against its plain path."""
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_topk
+    from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
+        quantize_queries, slab_window_variant, slab_window_variant_plain,
+    )
+
+    out = []
+    for p, mode in ((p16, "load_floor"), (p8, "load_floor"), (p16, "rounded_query"),
+                    (p8, "i8_dot")):
+        dname = str(p.packed.dtype)[6:]
+        qv = quantize_queries(p.qv) if mode == "i8_dot" else p.qv
+        c = (p.packed, p.s0[:CHECK_Q], qv[:CHECK_Q], p.per_table, mode)
+        got, want = slab_window_variant(*c), slab_window_variant_plain(*c)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{mode}: aligned starts differ")
+        if mode == "rounded_query":
+            err = _close(f"{mode} {dname}", got[0], want[0])
+        elif not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{mode} {dname}: kernel and plain differ (must be exact)")
+        else:
+            err = 0.0
+        a = (p.packed, p.s0, qv, p.per_table, mode)
+        res = dict(geometry=f"{mode} {dname}, q = {PQ}", max_abs_err=err,
+                   **_timed_pair(lambda: slab_window_variant(*a),
+                                 lambda: slab_window_variant_plain(*a)))
+        if mode == "i8_dot":
+            ids = [slab_topk(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
+                   for f in (slab_window_variant, slab_window_variant_plain)]
+            res.update(_same_recall("P4 mxu_i8", *ids, p.true_idx))
+        log(f"phase 12 slab_window_variant {mode} {dname}: max |err| {err:.3g} over "
+            f"{CHECK_Q} queries{' (output and fold exact)' if len(got) == 3 else ''}; q={PQ}: "
+            f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+        out.append(res)
+    return out
+
+
+def check_blk(p):
+    """P5 blocked dots against the plain version (DOT_TOL), times at q = PQ."""
+    from crypto_rec_tpu_torch.ops.kernels.blkslab import (
+        blk_window_dots, blk_window_dots_plain, to_blk,
+    )
+
+    dname = str(p.packed.dtype)[6:]
+    blk = to_blk(p.packed)
+    c = (blk, p.s0[:CHECK_Q], p.qv[:CHECK_Q], p.per_table)
+    (dk, ak), (dp, ap) = blk_window_dots(*c), blk_window_dots_plain(*c)
+    torch.cuda.synchronize()
+    if not torch.equal(ak, ap):
+        raise AssertionError("blk: aligned starts differ")
+    err = _close(f"blk {dname}", dk, dp)
+    a = (blk, p.s0, p.qv, p.per_table)
+    res = dict(geometry=f"{dname} {list(blk.shape)}, q = {PQ}", max_abs_err=err,
+               **_timed_pair(lambda: blk_window_dots(*a), lambda: blk_window_dots_plain(*a)))
+    log(f"phase 12 blk_window_dots {dname}: max |err| {err:.3g} over {CHECK_Q} queries; "
+        f"q={PQ}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+    return res
+
+
+def check_k1_probes(p16, p8):
+    """K1 without the mask as P1 (bf16) and P4's vpu (int8) run it: error
+    against the plain version, times at q = PQ, and P4's vpu recall of
+    both paths."""
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        slab_topk, slab_window_dots, slab_window_dots_plain,
+    )
+
+    out = []
+    for p in (p16, p8):
+        dname = str(p.packed.dtype)[6:]
+        c = (p.packed, p.s0[:CHECK_Q], p.sizes[:CHECK_Q], p.qv[:CHECK_Q], p.per_table)
+        err = _close(f"K1 nomask {dname}", slab_window_dots(*c, mask=False)[0],
+                     slab_window_dots_plain(*c, mask=False)[0])
+        a = (p.packed, p.s0, p.sizes, p.qv, p.per_table)
+        res = dict(geometry=f"mask off {dname}, q = {PQ}", max_abs_err=err,
+                   **_timed_pair(lambda: slab_window_dots(*a, mask=False),
+                                 lambda: slab_window_dots_plain(*a, mask=False)))
+        if p is p8:
+            ids = [slab_topk(*f(*a, mask=False), p.packed_rows, p.n_rows, TOP_K)[1]
+                   for f in (slab_window_dots, slab_window_dots_plain)]
+            res.update(_same_recall("P4 vpu", *ids, p.true_idx))
+        log(f"phase 12 K1 (P1 dots_nomask) {dname}: max |err| {err:.3g} over {CHECK_Q} "
+            f"queries; q={PQ}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+        out.append(res)
+    return out
+
+
+def phase12(corpus, queries, true_idx, smi):
+    """The probe kernels P1-P6 on one cosine index (k = 13, L = 8, K2) of
+    the planted corpus, packed int8 and bf16: each kernel against its plain
+    version, then one counted run of the six probes' run_* functions."""
+    from crypto_rec_tpu_torch.experiments import _common as PC
+    from crypto_rec_tpu_torch.experiments import (
+        probe_r3_binned, probe_r3_final, probe_r3_mask, probe_r3_split, probe_r4_blk,
+        probe_r5_int4,
+    )
+    from crypto_rec_tpu_torch.models.lsh.index import pack_index
+
+    log(f"phase 12 probe kernels on {smi}")
+    t0 = time.perf_counter()
+    index = PC.build_cosine(corpus, SEED + 40)
+    pidx8 = pack_index(index, corpus, dtype=torch.int8)
+    pidx16 = pack_index(index, corpus, dtype=torch.bfloat16)
+    p8 = PC.probe_index(pidx8, queries[:PQ], true_idx=true_idx[:PQ])
+    p16 = PC.probe_index(pidx16, queries[:PQ], true_idx=true_idx[:PQ])
+    p8w = PC.probe_index(pidx8, queries[:P6Q], true_idx=true_idx[:P6Q])
+    del pidx8, pidx16
+    torch.cuda.synchronize()
+    log(f"phase 12 index: build + int8 and bf16 packs {time.perf_counter() - t0:.3f} s")
+
+    checks = dict(k1=check_k1_probes(p16, p8), binned=check_binned(p8) + check_binned(p16),
+                  int4=check_int4(p8w), variants=check_variants(p16, p8),
+                  blk=[check_blk(p8), check_blk(p16)])
+    torch.cuda.empty_cache()
+
+    # the counted run: the six probes as their entry points run them
+    zero_counts()
+    res = dict(mask=probe_r3_mask.run_mask(p16), split=probe_r3_split.run_split(p16),
+               floor_int8=probe_r3_split.floor_vs_k1(p8),
+               binned_bf16=probe_r3_binned.run_binned(p16),
+               binned_int8=probe_r3_binned.run_binned(p8),
+               final=probe_r3_final.run_final(p16, p8),
+               blk_int8=probe_r4_blk.run_blk(p8), blk_bf16=probe_r4_blk.run_blk(p16),
+               int4=probe_r5_int4.run_int4(p8w))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"phase 12 launches (the six probes' runs): {launches}")
+    missing = [k for k, v in launches.items() if k != "signproj_bucket_ids" and not v]
+    if missing:
+        raise AssertionError(f"phase 12: kernels not launched: {missing}")
+    probe_r3_mask.report(res["mask"], PQ)
+    probe_r3_split.report(res["split"], PQ)
+    probe_r3_split.report_floor(res["floor_int8"])
+    probe_r3_binned.report(res["binned_bf16"], "bf16", PQ)
+    probe_r3_binned.report(res["binned_int8"], "int8", PQ)
+    probe_r3_final.report(res["final"], PQ)
+    probe_r4_blk.report(res["blk_int8"], "int8")
+    probe_r4_blk.report(res["blk_bf16"], "bfloat16")
+    probe_r5_int4.report(res["int4"], P6Q)
+    if not res["mask"]["nomask_ge_masked"]:
+        raise AssertionError("P1: maskless scores fall below masked ones")
+    for key in ("blk_int8", "blk_bf16"):     # the probe's own parity number
+        r = res[key]
+        if r["max_abs_diff"] > DOT_TOL["atol"] + DOT_TOL["rtol"] * r["max_abs_dot"]:
+            raise AssertionError(f"P5 {key}: blocked and row dots differ")
+    return checks, res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -704,6 +959,9 @@ def main() -> int:
     for i, leg in enumerate(CUBE_LEGS):
         paths[leg[0]] = cube_leg(corpus, queries_all, true_all, *leg, seed=SEED + 30 + i)
     serving = phase11(eidx, corpus, q_host, true_host)
+    del eidx
+    torch.cuda.empty_cache()
+    probe_checks, probes, probe_launches = phase12(corpus, queries_all, true_all, smi)
 
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
@@ -722,8 +980,35 @@ def main() -> int:
              ms=k1_ms, plain_ms=k1_plain_ms, geometries=geoms,
              path_launches=path_launches("slab_window_dots")),
     ]
+
+    def probe_row(name, source, replaces, rows, **extra):
+        """A probe kernel's row: launches from phase 12's counted run, the
+        worst error and the first geometry's times."""
+        return dict(name=name, route="cuda", source=f"crypto_rec_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=probe_launches[name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows), ms=rows[0]["ms"],
+                    plain_ms=rows[0]["plain_ms"], geometries=rows, **extra)
+
+    variants = probe_checks["variants"]
+    kernels += [
+        probe_row("slab_window_dots", "slabscore.cu",
+                  "benchmarks/experiments/probe_r3_mask.py:114", probe_checks["k1"],
+                  note="P1 dots_nomask, and the vpu modes of P2 and P4: K1 with mask off"),
+        probe_row("binned_dots", "binned.cu", "benchmarks/experiments/probe_r3_binned.py:98",
+                  probe_checks["binned"]),
+        probe_row("slab_window_variant", "slabvariants.cu",
+                  "benchmarks/experiments/probe_r3_split.py:156", variants[:3],
+                  note="modes load_floor (zeros) and rounded_query (mxu_rep, mxu_tile)"),
+        probe_row("slab_window_variant", "slabvariants.cu",
+                  "benchmarks/experiments/probe_r3_final.py:99", variants[3:],
+                  note="mode i8_dot (mxu_i8)"),
+        probe_row("blk_window_dots", "blkslab.cu", "benchmarks/experiments/probe_r4_blk.py:132",
+                  probe_checks["blk"]),
+        probe_row("slab_window_dots_int4", "int4slab.cu",
+                  "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]]),
+    ]
     print(json.dumps({"kernels": kernels, "e2e": e2e, "paths": paths,
-                      "serving_euclidean": serving, "card": smi}))
+                      "serving_euclidean": serving, "probes": probes, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

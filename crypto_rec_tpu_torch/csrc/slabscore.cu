@@ -28,43 +28,14 @@
 // an upcast and f32 FMAs; a shuffle tree reduces the group's partial sums.
 // No tensor cores: a simple kernel that is right first.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "slabrow.cuh"
 
 namespace {
 
+using namespace slabrow;
+
 constexpr int kThreads = 128;
 constexpr int kMaxChunks = 4;   // 16-byte chunks per lane: row <= 2048 B
-
-enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-template <int DT> struct Elems;
-template <> struct Elems<kF32> { static constexpr int n = 4; };
-template <> struct Elems<kBF16> { static constexpr int n = 8; };
-template <> struct Elems<kI8> { static constexpr int n = 16; };
-
-__device__ __forceinline__ float i8(uint32_t w, int b) {
-  return (float)((int32_t)(w << (24 - 8 * b)) >> 24);
-}
-
-// f32 dot of one 16-byte chunk with its query elements q[0, Elems<DT>::n)
-template <int DT>
-__device__ __forceinline__ float chunk_dot(uint4 v, const float* q, float acc) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (DT == kF32) {
-      acc = fmaf(__uint_as_float(w[i]), q[i], acc);
-    } else if (DT == kBF16) {   // little-endian: low half is the first element
-      acc = fmaf(__uint_as_float(w[i] << 16), q[2 * i], acc);
-      acc = fmaf(__uint_as_float(w[i] & 0xffff0000u), q[2 * i + 1], acc);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc = fmaf(i8(w[i], b), q[4 * i + b], acc);
-    }
-  }
-  return acc;
-}
 
 // CPL = 16-byte chunks per lane (1..kMaxChunks), a template parameter so a
 // lane holds only the query registers it uses: int8 d = 128 needs 16 floats,
@@ -136,8 +107,7 @@ int launch(const void* slab, const void* queries, const void* row0,
   constexpr int E = Elems<DT>::n;
   if (d % E != 0) return (int)cudaErrorInvalidValue;
   const int chunks = d / E;
-  int group = 1;
-  while (group * 2 <= chunks && group < 32) group *= 2;
+  const int group = row_group(chunks);
   const int cpl = (chunks + group - 1) / group;
   const long long blocks = (long long)q * T;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

@@ -37,6 +37,14 @@ _SIGNATURES = {
     "crt_signproj": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (slab, queries, row0, head, size, dots, q, T, win, d, mask, dtype, stream)
     "crt_slab_window_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (slab, queries, row0, vals, pos, q, T, win, d, nbins, dtype, stream)
+    "crt_binned_dots": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (slab4, queries, row0, dots, q, T, win, d, stream)
+    "crt_int4_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (slab, queries, row0, out, sink, q, T, win, d, mode, dtype, stream)
+    "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)
+    "crt_blk_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -51,29 +51,76 @@ def window_len(per_table: int) -> int:
     return (per_table + ALIGN + WIN_ROUND - 1) // WIN_ROUND * WIN_ROUND
 
 
+def align_starts(starts: torch.Tensor, align: int, last: int) -> torch.Tensor:
+    """Window starts aligned DOWN to `align` rows, clamped to `last` (the
+    last start whose window still ends inside the slab), int32."""
+    starts = starts.to(torch.int32)
+    return torch.clamp(torch.div(starts, align, rounding_mode="floor") * align, max=last)
+
+
+def check_row_slab(name: str, packed, starts, queries, dtypes) -> None:
+    """Raise on what a row-slab kernel ([L, n_pad, d] slabs read as 16-byte
+    chunks, <= 2048 B a row) does not take: the slab dtype, d % 16, the
+    query shape, operands on other devices, a misaligned slab."""
+    if packed.dtype not in dtypes:
+        names = "/".join(str(t)[6:] for t in dtypes)
+        raise TypeError(f"{name} takes {names} slabs, got {packed.dtype}")
+    d = packed.shape[2]
+    if d % 16:
+        raise ValueError(f"{name} needs d % 16 == 0, got d={d}")
+    if d * packed.element_size() > _MAX_ROW_BYTES:
+        raise ValueError(f"slab rows of {d * packed.element_size()} B exceed "
+                         f"{name}'s {_MAX_ROW_BYTES} B")
+    if queries.shape != (starts.shape[0], d):
+        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
+    if starts.device != packed.device or queries.device != packed.device:
+        raise ValueError(f"{name}: slabs, starts and queries must share one CUDA device")
+    if not packed.is_contiguous() or packed.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned slab")
+
+
+def window_chunks(packed: torch.Tensor, row0: torch.Tensor, win: int, elem_bytes: int = 4):
+    """Plain versions' gather: yield (s, e, rows [e - s, T, win, d]) in the
+    slab's dtype for query chunks [s, e), sized so one chunk's upcast
+    ([c, T, win, d] x elem_bytes) stays near 1 GB."""
+    q, T = row0.shape
+    d = packed.shape[-1]
+    flat = packed.reshape(-1, d)
+    lane = torch.arange(win, device=packed.device)
+    step = max(1, _PLAIN_BYTES // (T * win * d * elem_bytes))
+    for s in range(0, q, step):
+        e = min(q, s + step)
+        yield s, e, flat[row0[s:e].long()[:, :, None] + lane]
+
+
 def _geometry(packed, starts, sizes, per_table, shared_slab):
-    """-> (win, aligned [q, T], row0 [q, T] absolute flat rows, head, size)."""
+    """-> (win, aligned [q, T], row0 [q, T] absolute flat rows, head, size);
+    sizes None (maskless callers) gives size None."""
     n_pad = packed.shape[1]
     T = starts.shape[1] if shared_slab else packed.shape[0]
     if shared_slab and packed.shape[0] != 1:
         raise ValueError("shared_slab expects packed [1, n_pad, d]")
-    if starts.shape[1] != T or sizes.shape != starts.shape:
+    if starts.shape[1] != T or (sizes is not None and sizes.shape != starts.shape):
         raise ValueError("starts and sizes must be [q, L] for L = packed.shape[0]")
     win = window_len(per_table)
     if n_pad < win:
         raise ValueError(f"window {win} exceeds packed length {n_pad}")
     starts = starts.to(torch.int32)
-    aligned = torch.clamp(
-        torch.div(starts, ALIGN, rounding_mode="floor") * ALIGN, max=n_pad - win
-    )
+    aligned = align_starts(starts, ALIGN, n_pad - win)
     head = starts - aligned
-    size = torch.minimum(torch.clamp(sizes.to(torch.int32), max=per_table), win - head)
+    size = (None if sizes is None else
+            torch.minimum(torch.clamp(sizes.to(torch.int32), max=per_table), win - head))
     # absolute row offsets into the flattened [L * n_pad, d] slab array
     l_off = (
         torch.zeros(T, dtype=torch.int32, device=starts.device) if shared_slab
         else torch.arange(T, dtype=torch.int32, device=starts.device) * n_pad
     )
     return win, aligned, aligned + l_off[None, :], head, size
+
+
+def _check_sizes(sizes, mask: bool) -> None:
+    if mask and sizes is None:
+        raise ValueError("mask=True needs the window sizes")
 
 
 def _mask(dots, head, size):
@@ -85,27 +132,22 @@ def _mask(dots, head, size):
 def slab_window_dots_plain(
     packed: torch.Tensor,    # [L, n_pad, d] int8 / bf16 / f32 CSR slabs
     starts: torch.Tensor,    # [q, T] window starts within a table
-    sizes: torch.Tensor,     # [q, T] valid rows per window
+    sizes,                   # [q, T] valid rows per window (None: mask=False)
     queries: torch.Tensor,   # [q, d] f32, pre-normalized for cosine
     per_table: int,
     mask: bool = True,
     shared_slab: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: gather [q, T, win, d], upcast, f32 einsum."""
+    _check_sizes(sizes, mask)
     win, aligned, row0, head, size = _geometry(
         packed, starts, sizes, per_table, shared_slab
     )
     q, T = starts.shape
-    d = packed.shape[2]
-    flat = packed.reshape(-1, d)
     qv = queries.float()
-    lane = torch.arange(win, device=packed.device)
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
-    step = max(1, _PLAIN_BYTES // (T * win * d * 4))
-    for s in range(0, q, step):
-        rows = row0[s:s + step].long()[:, :, None] + lane          # [c, T, win]
-        cand = flat[rows].float()                                  # [c, T, win, d]
-        dots[s:s + step] = torch.einsum("qd,qtwd->qtw", qv[s:s + step], cand)
+    for s, e, cand in window_chunks(packed, row0, win):
+        dots[s:e] = torch.einsum("qd,qtwd->qtw", qv[s:e], cand.float())
     if mask:
         dots = _mask(dots, head, size)
     return dots, aligned
@@ -114,7 +156,7 @@ def slab_window_dots_plain(
 def slab_window_dots(
     packed: torch.Tensor,
     starts: torch.Tensor,
-    sizes: torch.Tensor,
+    sizes,
     queries: torch.Tensor,
     per_table: int,
     mask: bool = True,
@@ -131,25 +173,16 @@ def slab_window_dots(
         return slab_window_dots_plain(
             packed, starts, sizes, queries, per_table, mask, shared_slab
         )
-    if packed.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the slab kernel takes int8/bf16/f32 slabs, got {packed.dtype}")
+    _check_sizes(sizes, mask)
+    check_row_slab("the slab kernel", packed, starts, queries, _DTYPE_CODE)
     d = packed.shape[2]
-    if d % 16:
-        raise ValueError(f"the slab kernel needs d % 16 == 0, got d={d}")
-    if d * packed.element_size() > _MAX_ROW_BYTES:
-        raise ValueError(f"slab rows of {d * packed.element_size()} B exceed "
-                         f"the kernel's {_MAX_ROW_BYTES} B")
-    if queries.shape != (starts.shape[0], d):
-        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
-    if starts.device != packed.device or queries.device != packed.device:
-        raise ValueError("slabs, starts and queries must share one CUDA device")
-    if not packed.is_contiguous() or packed.data_ptr() % 16:
-        raise ValueError("the slab kernel needs a contiguous, 16-byte aligned slab")
     win, aligned, row0, head, size = _geometry(
         packed, starts, sizes, per_table, shared_slab
     )
     q, T = starts.shape
     qv = queries.float().contiguous()
+    if size is None:            # mask=False: the kernel reads but ignores it
+        size = torch.zeros_like(head)
     row0, head, size = row0.contiguous(), head.contiguous(), size.contiguous()
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
     with torch.cuda.device(packed.device):
@@ -190,6 +223,23 @@ def _dedup_topk_pairs(
     return s2, out_ids.to(torch.int32)
 
 
+def lane_rows(
+    pos: torch.Tensor,             # [q, m] flat lanes in [0, T * win)
+    aligned_starts: torch.Tensor,  # [q, T] local CSR positions of lane 0
+    packed_rows: torch.Tensor,     # [T, n_pad] int32 CSR-ordered row ids
+    win: int,
+) -> torch.Tensor:
+    """Row ids of flat window lanes: table pos // win, CSR position
+    aligned + pos % win, clamped to the slab."""
+    n_pad = packed_rows.shape[1]
+    pos = pos.long()
+    l_of = torch.div(pos, win, rounding_mode="floor")
+    gpos = l_of * n_pad + torch.clamp(
+        torch.gather(aligned_starts.long(), 1, l_of) + pos % win, max=n_pad - 1
+    )
+    return packed_rows.reshape(-1)[gpos]
+
+
 def slab_topk(
     dots: torch.Tensor,            # [q, T, win] from slab_window_dots
     aligned_starts: torch.Tensor,  # [q, T] local CSR positions of lane 0
@@ -215,30 +265,18 @@ def slab_topk(
 
     -> (scores [q, top_k] descending, row ids [q, top_k] int32, -1 pad)."""
     q, L, win = dots.shape
-    n_pad = packed_rows.shape[1]
-    flat_rows = packed_rows.reshape(-1)
-    l_base = torch.arange(L, device=dots.device)[None, :] * n_pad        # [1, L]
-    a0 = aligned_starts.long()
     if not exact and (stage1_per_table or not stage1_width):
         kk = min(max(stage1_per_table or top_k, -(-top_k // L)), win)
         s1, lane = torch.topk(dots.reshape(q * L, win), kk, dim=1)
         s1 = s1.reshape(q, L * kk)
-        gpos = l_base[:, :, None] + torch.clamp(
-            a0[:, :, None] + lane.reshape(q, L, kk), max=n_pad - 1
-        )
-        ids1 = flat_rows[gpos.reshape(q, L * kk)]
+        l_base = torch.arange(L, device=dots.device)[None, :, None] * win
+        pos1 = (l_base + lane.reshape(q, L, kk)).reshape(q, L * kk)
     else:
-        flat = dots.reshape(q, L * win)
         m1 = min(L * top_k, L * win)
         if stage1_width:
             m1 = min(m1, max(stage1_width, top_k))
-        s1, pos1 = torch.topk(flat, m1, dim=1)
-        l_of = torch.div(pos1, win, rounding_mode="floor")
-        lane = pos1 % win
-        gpos = l_of * n_pad + torch.clamp(
-            torch.gather(a0, 1, l_of) + lane, max=n_pad - 1
-        )
-        ids1 = flat_rows[gpos]
+        s1, pos1 = torch.topk(dots.reshape(q, L * win), m1, dim=1)
+    ids1 = lane_rows(pos1, aligned_starts, packed_rows, win)
     ids1 = torch.where(s1 > float("-inf"), ids1, n_rows)
     return _dedup_topk_pairs(s1, ids1, n_rows, top_k)
 

@@ -2,11 +2,83 @@
 
 JAX and torch draw different random numbers from one seed, so the JAX
 index's arrays (hash parameters, CSR tables, slabs) cross over to the port
-as numpy arrays through `index_from_numpy`.
+as numpy arrays through `index_from_numpy`.  `load_probe` takes the
+kernel functions of a probe script without running the script.
 """
+
+import ast
+import functools
+import importlib.util
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
+
+EXPERIMENTS = Path(__file__).resolve().parents[1] / "benchmarks" / "experiments"
+
+
+def load_probe(path, names, consts):
+    """The named top-level functions of a probe script, without running
+    the script (P1-P4 build a 2M-row corpus at module level).  They are
+    compiled from the file's own source into a fresh namespace holding
+    jax, jnp, functools, pltpu, `consts` and a `pl` whose pallas_call
+    always runs in interpret mode, so the TPU kernels run on the CPU.
+    -> SimpleNamespace of the functions."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as real_pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    class _InterpretPl:
+        def __getattr__(self, name):
+            return getattr(real_pl, name)
+
+        @staticmethod
+        def pallas_call(*args, **kwargs):
+            kwargs["interpret"] = True
+            return real_pl.pallas_call(*args, **kwargs)
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=str(path))
+    body = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names]
+    missing = set(names) - {n.name for n in body}
+    assert not missing, f"{path}: no functions {sorted(missing)}"
+    ns = dict(jax=jax, jnp=jnp, functools=functools, pl=_InterpretPl(), pltpu=pltpu,
+              **consts)
+    exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"), ns)
+    return types.SimpleNamespace(**{n: ns[n] for n in names})
+
+
+def probe_functions():
+    """The probe kernels' JAX functions by id, P1-P6 (probe_r5_int4.py has
+    a main() guard and interprets off the TPU, so it is imported as is)."""
+    a32 = {"_ALIGN": 32}
+    spec = importlib.util.spec_from_file_location(
+        "probe_r5_int4", EXPERIMENTS / "probe_r5_int4.py")
+    p6 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(p6)
+    return dict(
+        p1=load_probe(EXPERIMENTS / "probe_r3_mask.py",
+                      ["make_kernel_nomask", "dots_nomask"], a32),
+        p2=load_probe(EXPERIMENTS / "probe_r3_split.py",
+                      ["variant_kernel", "run_variant"], a32),
+        p3=load_probe(EXPERIMENTS / "probe_r3_binned.py",
+                      ["make_binned_kernel", "binned_dots", "retrieve_binned"], a32),
+        p4=load_probe(EXPERIMENTS / "probe_r3_final.py",
+                      ["make_kernel", "nomask_dots", "dedup_topk", "retrieve_nomask"], a32),
+        p5=load_probe(EXPERIMENTS / "probe_r4_blk.py",
+                      ["make_blk_kernel", "blk_window_dots"], {"B": 128}),
+        p6=p6,
+    )
+
+
+def to_torch(a):
+    """numpy / jax array -> torch tensor (bf16 bit for bit)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 _PACKED = ("packed", "packed_rows", "packed_detailed", "packed_scale",

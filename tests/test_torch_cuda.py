@@ -68,6 +68,22 @@ def test_slab_kernel_matches_plain(cuda, dtype, mask, shared):
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-4 if dtype == torch.int8 else 1e-6)
 
 
+def test_slab_kernel_without_sizes(cuda):
+    """mask=False needs no window sizes: sizes=None gives the dots of the
+    call with sizes, and mask=True without them is refused."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    T, n_pad, d, q = 8, 8192, 128, 203
+    packed = torch.randint(-127, 128, (T, n_pad, d), generator=g, device=cuda).to(torch.int8)
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(q, d, generator=g, device=cuda)
+    got, a_got = slab_window_dots(packed, starts, None, qv, 488, mask=False)
+    want, a_want = slab_window_dots(packed, starts, starts, qv, 488, mask=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a_got, a_want) and torch.equal(got, want)
+    with pytest.raises(ValueError, match="sizes"):
+        slab_window_dots(packed, starts, None, qv, 488, mask=True)
+
+
 def _slabs(g, shape, dtype, device):
     if dtype == torch.int8:
         return torch.randint(-127, 128, shape, generator=g, device=device).to(torch.int8)
@@ -120,3 +136,134 @@ def test_slab_kernel_shared_three_segment_slab(cuda, dtype):
     assert int(a_got.max()) <= C * n_seg - 1024
     scale = want.abs().max()
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * float(scale))
+
+
+# ---- the probe kernels P2-P6 ----
+
+def _probe_inputs(g, dtype, cuda, T=8, n_pad=8192, d=128, q=203):
+    """Unit-row slabs (int8: global-scale quantized), starts running into
+    the slab's end, unit queries; q is ragged on purpose."""
+    x = torch.nn.functional.normalize(torch.randn(T, n_pad, d, generator=g, device=cuda),
+                                      dim=-1)
+    packed = (torch.clamp(torch.round(x / (x.abs().max() / 127)), -127, 127).to(torch.int8)
+              if dtype == torch.int8 else x.to(dtype))
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, d, generator=g, device=cuda), dim=-1)
+    return packed, starts, qv
+
+
+@pytest.mark.parametrize("nbins", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_binned_kernel_matches_plain(cuda, dtype, nbins):
+    from crypto_rec_tpu_torch.ops.kernels.binned import binned_dots, binned_dots_plain
+
+    packed, starts, qv = _probe_inputs(torch.Generator(device=cuda).manual_seed(4),
+                                       dtype, cuda)
+    vk, pk, ak = binned_dots(packed, starts, qv, 488, nbins)
+    vp, pp, ap = binned_dots_plain(packed, starts, qv, 488, nbins)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    atol = 1e-4 if dtype == torch.int8 else 1e-6
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=atol)
+    dots, _ = slab_window_dots_plain(packed, starts, starts, qv, 488, mask=False)
+    top2 = torch.topk(dots.reshape(dots.shape[0], -1, nbins), 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > atol + 1e-5 * top2[:, 0].abs()
+    assert torch.equal(pk[clear], pp[clear])
+
+
+def test_binned_kernel_ties_go_to_the_lowest_row(cuda):
+    """Integer-valued slabs and queries: exact dots, frequent ties, and
+    every bin's winning lane equal to the plain version's."""
+    from crypto_rec_tpu_torch.ops.kernels.binned import binned_dots, binned_dots_plain
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    packed = torch.randint(-2, 3, (8, 8192, 128), generator=g, device=cuda).to(torch.int8)
+    qv = torch.randint(-1, 2, (203, 128), generator=g, device=cuda).float()
+    starts = torch.randint(0, 8192, (203, 8), generator=g, device=cuda, dtype=torch.int32)
+    vk, pk, _ = binned_dots(packed, starts, qv, 488, 128)
+    vp, pp, _ = binned_dots_plain(packed, starts, qv, 488, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and torch.equal(pk, pp)
+
+
+def test_int4_kernel_matches_plain(cuda):
+    from crypto_rec_tpu_torch.ops.kernels.int4slab import (
+        repack_int4, slab_window_dots_int4, slab_window_dots_int4_plain,
+    )
+
+    packed, starts, qv = _probe_inputs(torch.Generator(device=cuda).manual_seed(5),
+                                       torch.int8, cuda)
+    p4 = repack_int4(packed)
+    assert p4.dtype == torch.uint8 and p4.shape[1] == packed.shape[1] // 2
+    dk, ak = slab_window_dots_int4(p4, starts, qv, 488)
+    dp, ap = slab_window_dots_int4_plain(p4, starts, qv, 488)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    assert torch.allclose(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,dtype", [("load_floor", torch.int8),
+                                        ("load_floor", torch.bfloat16),
+                                        ("rounded_query", torch.bfloat16),
+                                        ("i8_dot", torch.int8)])
+def test_variant_kernel_matches_plain(cuda, mode, dtype):
+    """load_floor: output and XOR fold exact; i8_dot bit for bit;
+    rounded_query within rtol 1e-5."""
+    from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
+        quantize_queries, slab_window_variant, slab_window_variant_plain,
+    )
+
+    packed, starts, qv = _probe_inputs(torch.Generator(device=cuda).manual_seed(6),
+                                       dtype, cuda)
+    if mode == "i8_dot":
+        qv = quantize_queries(qv)
+    got = slab_window_variant(packed, starts, qv, 488, mode)
+    want = slab_window_variant_plain(packed, starts, qv, 488, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    if mode == "rounded_query":
+        assert torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got[0], want[0])
+    if mode == "load_floor":
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_blk_kernel_matches_plain(cuda, dtype):
+    from crypto_rec_tpu_torch.ops.kernels.blkslab import (
+        blk_window_dots, blk_window_dots_plain, to_blk,
+    )
+
+    packed, starts, qv = _probe_inputs(torch.Generator(device=cuda).manual_seed(7),
+                                       dtype, cuda)
+    blk = to_blk(packed)
+    dk, ak = blk_window_dots(blk, starts, qv, 488)
+    dp, ap = blk_window_dots_plain(blk, starts, qv, 488)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    assert torch.allclose(dk, dp, rtol=1e-5, atol=1e-4 if dtype == torch.int8 else 1e-6)
+    # the same lanes as the row layout at 128-aligned starts
+    dr, _ = slab_window_dots(packed, (starts // 128) * 128, starts, qv, 488, mask=False)
+    assert torch.allclose(dk, dr, rtol=1e-5, atol=1e-4 if dtype == torch.int8 else 1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["binned", "int4", "variant", "blk"])
+def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
+    """Slabs on the card with starts on the host: the wrapper raises, it
+    never falls back to the plain version."""
+    from crypto_rec_tpu_torch.ops.kernels import binned, blkslab, int4slab, slabvariants
+
+    packed, starts, qv = _probe_inputs(torch.Generator(device=cuda).manual_seed(8),
+                                       torch.int8, cuda, T=2, n_pad=2048, q=16)
+    starts = starts.cpu()
+    call = {
+        "binned": lambda: binned.binned_dots(packed, starts, qv, 488),
+        "int4": lambda: int4slab.slab_window_dots_int4(int4slab.repack_int4(packed),
+                                                       starts, qv, 488),
+        "variant": lambda: slabvariants.slab_window_variant(packed, starts, qv, 488,
+                                                            "load_floor"),
+        "blk": lambda: blkslab.blk_window_dots(blkslab.to_blk(packed), starts, qv, 488),
+    }[kernel]
+    with pytest.raises(ValueError, match="device"):
+        call()

@@ -13,8 +13,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule loads no jax* or ml_dtypes
-    module (run in a fresh interpreter: the test harness imports jax)."""
+    """Importing the port and every submodule, the probe entry points
+    (`experiments`) included, loads no jax* or ml_dtypes module (run in a
+    fresh interpreter: the test harness imports jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import crypto_rec_tpu_torch as p\n"
@@ -33,6 +34,12 @@ def test_port_imports_no_jax():
     assert {"crypto_rec_tpu_torch.models.lsh.pstable",
             "crypto_rec_tpu_torch.models.lsh.hypercube",
             "crypto_rec_tpu_torch.ops.hamming"} <= mods
+    # the probe entry points and their kernels' wrappers
+    assert {f"crypto_rec_tpu_torch.experiments.{m}" for m in (
+        "_common", "probe_r3_mask", "probe_r3_split", "probe_r3_binned",
+        "probe_r3_final", "probe_r4_blk", "probe_r5_int4")} <= mods
+    assert {f"crypto_rec_tpu_torch.ops.kernels.{m}" for m in (
+        "binned", "int4slab", "slabvariants", "blkslab")} <= mods
     assert bad.strip() == "[]", bad
 
 
