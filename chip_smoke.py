@@ -11,17 +11,21 @@ on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
-  3. K2 (sign-projection hash) against its plain version, 2M x 128 rows;
-  4. K1 (slab-window dots) against its plain version, both mask modes;
+  3. K2 (sign-projection hash) against its plain version, 2M x 128 rows,
+     L = 8;
+  4. K1 (slab-window dots, the tile-major kernel) against its plain
+     version on every window at q = 8,192, both mask modes, and on a hot
+     tile (half the queries on one window set);
   5. the fused LSH -> CF slice end to end at q = 8,192 and 32,768 (cosine
      k = 13, L = 8, int8 slabs, top-20 neighbours, top-5 coins): index
      build (K2), pack, retrieval (K1), CF scoring; neighbour recall@10
      against the planted truth must reach 0.99;
   6. lsh_phase(engine="fused") on the same users;
   7. serving: serve_cli answers three requests from a saved index;
-  8. K1 against its plain version at the new geometries (augmented int8
-     [4, n_pad, 256]; shared-slab cosine MultiCube [1, 2 n_pad, 128];
-     shared-slab augmented MultiCube [1, 3 n_pad, 256]) and K2 at L = 1;
+  8. K1 against its plain version on every window at the new geometries
+     (augmented int8 [4, n_pad, 256] at q = 8,192; shared-slab cosine
+     MultiCube [1, 2 n_pad, 128] and shared-slab augmented MultiCube
+     [1, 3 n_pad, 256] at q = 1,024) and K2 at L = 1;
   9. euclidean p-stable LSH (k = 5, L = 4, w = 20, window 768, int8
      augmented slabs) at q = 32,768, recall@10 floor 0.98;
  10. the cube family at q = 32,768, k = 13, int8: cosine MultiCube (C = 2,
@@ -39,6 +43,16 @@ on failure:
      the recall of each retrieval path against its plain path (within
      0.002); then one counted run of the six probes' run_* functions.
 
+Times are CUDA-event medians of alternating rounds: K2 against its
+previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
+(the library yardstick, TF32 off) and the plain version; K1 against its
+row-wise body (`slab_window_dots_rowwise`) and the plain version at every
+geometry of phases 4, 5, 8, 9 and 10 (the plain version is not timed on
+the two euclidean cubes, where a call takes seconds; phase 8 checks it
+at their geometry).  Each time stands beside its bound
+(`ops/kernels/bounds.py`: unique bytes over 3.35 TB/s against FLOPs over
+the unit's peak) and the card's nvidia-smi line.
+
 Each kernel wrapper counts its launches.  The counts are zeroed just before
 each path's counted run (phase 5: build, pack, retrieve and CF-score 8,192
 users; phases 9 and 10: build, pack and retrieve; phases 6-7 and 11 as
@@ -46,9 +60,9 @@ wholes; phase 12: the six probes) and read just after it; each kernel of
 the path must show > 0.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
-error against its plain version, times, the new geometries and each path's
-launches; the last line is {"ok": true, "device": ...}.  Exits non-zero
-without a CUDA device.
+error against its plain version, times, bound and share of it, every
+geometry and each path's launches; the last line is {"ok": true,
+"device": ...}.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -95,12 +109,40 @@ def wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
+ROUNDS = 5                 # alternating timing rounds (3 at the large paths)
+CARD = ""                  # nvidia-smi's name and power limit, set in main
+
+
+def rounds_ms(fns, rounds=ROUNDS):
+    """{key: median CUDA-event ms over `rounds` alternating rounds} after
+    one warm run of each fn, so drift on the card falls on all alike; a fn
+    given as None is not timed (None)."""
+    from crypto_rec_tpu_torch.experiments._common import timed_alternating
+
+    live = {k: f for k, f in fns.items() if f is not None}
+    t = timed_alternating(live, torch.device("cuda"), rounds)
+    return {k: statistics.median(t[k]) if k in t else None for k in fns}
+
+
+def with_bound(entry, b):
+    """entry + its bound (bounds.py), share of bound = bound / ms, the card."""
+    entry.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"], peak=b["peak"],
+                 unique_bytes=b["bytes"], flops=b["flops"],
+                 share_of_bound=b["bound_ms"] / entry["ms"], card=CARD)
+    if "ffma_bound_ms" in b:
+        entry["ffma_bound_ms"] = b["ffma_bound_ms"]
+    return entry
+
+
 def check_k2(corpus, proj, k, L):
     """K2 against its plain version on every corpus row.  A row may differ
     only where a projection lies within 1e-5 |x||r| of 0 (f32 summation
-    order decides its sign); any other difference raises."""
+    order decides its sign); any other difference raises.  Then the kernel,
+    its previous design, one torch.matmul(x, proj) (the library yardstick,
+    TF32 off) and the plain version in alternating rounds."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.signproj import (
-        signproj_bucket_ids, signproj_bucket_ids_plain,
+        signproj_bucket_ids, signproj_bucket_ids_plain, signproj_bucket_ids_prev,
     )
 
     n = corpus.shape[0]
@@ -116,10 +158,85 @@ def check_k2(corpus, proj, k, L):
     n_unexplained = int((bad & ~near0).sum())
     if n_unexplained:
         raise AssertionError(f"K2: {n_unexplained} rows differ away from 0")
-    return dict(rows_differ=int(bad.sum()), rows_near_zero=int(near0.sum()),
-                max_abs_err=float((ids_k - ids_p).abs().max()),
-                ms=cuda_ms(lambda: signproj_bucket_ids(corpus, proj, k, L)),
-                plain_ms=cuda_ms(lambda: signproj_bucket_ids_plain(corpus, proj, k, L)))
+    max_err = float((ids_k - ids_p).abs().max())
+    del ids_k, ids_p
+    t = rounds_ms({"ms": lambda: signproj_bucket_ids(corpus, proj, k, L),
+                   "prev_ms": lambda: signproj_bucket_ids_prev(corpus, proj, k, L),
+                   "library_ms": lambda: torch.matmul(corpus, proj),
+                   "plain_ms": lambda: signproj_bucket_ids_plain(corpus, proj, k, L)})
+    entry = dict(geometry=f"L = {L}, k = {k}, [{n}, {corpus.shape[1]}] x "
+                          f"[{corpus.shape[1]}, {L * k}]",
+                 rows_differ=int(bad.sum()), rows_near_zero=int(near0.sum()),
+                 max_abs_err=max_err, **t)
+    return with_bound(entry, bounds.k2_call(n, corpus.shape[1], k, L))
+
+
+def k2_line(phase, e):
+    log(f"phase {phase} K2 signproj {e['geometry']}: {e['rows_differ']} rows differ "
+        f"({e['rows_near_zero']} rows have a projection within 1e-5 |x||r| of 0); "
+        f"{ROUNDS} alternating rounds: kernel {e['ms']:.3f} ms, previous design "
+        f"{e['prev_ms']:.3f}, torch.matmul {e['library_ms']:.3f}, plain "
+        f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
+        f"{e['peak']}): {100 * e['share_of_bound']:.1f}% of it")
+
+
+def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab):
+    """The tile-major K1 against its plain version on every given window,
+    both mask modes: aligned starts equal, masked lanes equal, dots within
+    rtol 1e-5 / atol 1e-4.  -> max |err| over the finite lanes."""
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        slab_window_dots, slab_window_dots_plain,
+    )
+
+    err = 0.0
+    for mask in (True, False):
+        a = (packed, s0, sizes, qk, per_table)
+        dk, ak = slab_window_dots(*a, mask=mask, shared_slab=shared_slab)
+        dp, ap = slab_window_dots_plain(*a, mask=mask, shared_slab=shared_slab)
+        torch.cuda.synchronize()
+        if not torch.equal(ak, ap):
+            raise AssertionError(f"K1 {label}: aligned starts differ")
+        fin = torch.isfinite(dp)
+        if not torch.equal(fin, torch.isfinite(dk)):
+            raise AssertionError(f"K1 {label}: masked lanes differ")
+        if not torch.allclose(dk[fin], dp[fin], rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"K1 {label}: dots differ beyond rtol 1e-5, atol 1e-4")
+        err = max(err, float((dk[fin] - dp[fin]).abs().max()))
+        del dk, dp, fin
+    return err
+
+
+def k1_time(label, packed, s0, sizes, qk, per_table, shared_slab, plain=True,
+            rounds=ROUNDS):
+    """The tile-major K1, its row-wise body and (plain=True) the plain
+    version, mask off, in alternating rounds on the same windows, with the
+    call's bound.  K1 has no one PyTorch call for a library yardstick (a
+    gather and an einsum are two): library_ms is None."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise, window_len,
+    )
+
+    a = (packed, s0, sizes, qk, per_table)
+    kw = dict(mask=False, shared_slab=shared_slab)
+    t = rounds_ms({"ms": lambda: slab_window_dots(*a, **kw),
+                   "prev_ms": lambda: slab_window_dots_rowwise(*a, **kw),
+                   "plain_ms": (lambda: slab_window_dots_plain(*a, **kw)) if plain else None},
+                  rounds)
+    entry = dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
+                 per_table=per_table, win=window_len(per_table), rows=int(s0.shape[0]),
+                 windows_per_row=int(s0.shape[1]), library_ms=None, **t)
+    return with_bound(entry, bounds.k1_call(packed, s0, sizes, qk, per_table, shared_slab))
+
+
+def k1_line(phase, e, err=None):
+    plain = "not timed" if e["plain_ms"] is None else f"{e['plain_ms']:.3f} ms"
+    chk = "" if err is None else f"max |err| {err:.3g} (mask on/off, every window); "
+    log(f"phase {phase} K1 {e['geometry']}: slab {e['slab']} {e['dtype']}, win "
+        f"{e['win']}, {e['rows']} rows x {e['windows_per_row']} windows: {chk}"
+        f"tile-major {e['ms']:.3f} ms, row-wise {e['prev_ms']:.3f} ms, plain {plain}; "
+        f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}; f32 FFMA floor "
+        f"{e['ffma_bound_ms']:.3f} ms): {100 * e['share_of_bound']:.1f}% of it")
 
 
 def serve_requests(tmp, idx_path, corpus_path, q_host, true_host, args):
@@ -225,39 +342,13 @@ def check_topk(scores, ids, q, n, label):
         raise AssertionError(f"{label}: scores not descending")
 
 
-def compare_k1(label, packed, s0, sizes, qk, per_table, shared_slab, n_err, n_time):
-    """K1 against its plain version on the first n_err rows of windows,
-    both mask modes (aligned starts equal, dots within rtol 1e-5, atol
-    1e-4), then CUDA-event times of both on the first n_time rows."""
-    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        slab_window_dots, slab_window_dots_plain,
-    )
-
-    err = 0.0
-    for mask in (True, False):
-        a = (packed, s0[:n_err], sizes[:n_err], qk[:n_err], per_table)
-        dk, ak = slab_window_dots(*a, mask=mask, shared_slab=shared_slab)
-        dp, ap = slab_window_dots_plain(*a, mask=mask, shared_slab=shared_slab)
-        torch.cuda.synchronize()
-        if not torch.equal(ak, ap):
-            raise AssertionError(f"K1 {label}: aligned starts differ")
-        fin = torch.isfinite(dp)
-        if not torch.equal(fin, torch.isfinite(dk)):
-            raise AssertionError(f"K1 {label}: masked lanes differ")
-        if not torch.allclose(dk[fin], dp[fin], rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"K1 {label}: dots differ beyond rtol 1e-5, atol 1e-4")
-        err = max(err, float((dk[fin] - dp[fin]).abs().max()))
-    a = (packed, s0[:n_time], sizes[:n_time], qk[:n_time], per_table)
-    ms = cuda_ms(lambda: slab_window_dots(*a, mask=False, shared_slab=shared_slab))
-    plain_ms = cuda_ms(lambda: slab_window_dots_plain(*a, mask=False,
-                                                      shared_slab=shared_slab), reps=3)
-    win = (per_table + 32 + 127) // 128 * 128
-    log(f"phase 8 K1 {label}: slab {list(packed.shape)} {str(packed.dtype)[6:]}, "
-        f"win {win}: max |err| {err:.3g} over {n_err} rows x {s0.shape[1]} windows "
-        f"(mask on/off); {n_time} rows: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
-                per_table=per_table, win=win, windows_per_row=int(s0.shape[1]),
-                rows_timed=n_time, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+def compare_k1(label, packed, s0, sizes, qk, per_table, shared_slab):
+    """Phase 8: K1 checked on every window of the geometry, then timed."""
+    err = k1_check(label, packed, s0, sizes, qk, per_table, shared_slab)
+    e = k1_time(label, packed, s0, sizes, qk, per_table, shared_slab)
+    e["max_abs_err"] = err
+    k1_line(8, e, err)
+    return e
 
 
 def phase8(corpus, queries):
@@ -279,8 +370,8 @@ def phase8(corpus, queries):
     qb, qd = query_hashes(eidx, qs)
     s0, sizes = euclid_window_offsets(eidx.bucket_starts, eidx.packed_detailed, qb, qd, E_PT)
     q_aug = augment_queries(qs, eidx.packed_aug_scale, eidx.packed.shape[2])
-    geoms.append(compare_k1("1 euclidean LSH, augmented int8", eidx.packed, s0, sizes,
-                            q_aug, E_PT, False, 256, qn))
+    geoms.append(compare_k1(f"euclidean LSH, augmented int8, q = {qn}", eidx.packed,
+                            s0, sizes, q_aug, E_PT, False))
     del eidx, s0, sizes, q_aug
     torch.cuda.empty_cache()
 
@@ -289,12 +380,11 @@ def phase8(corpus, queries):
                          corpus_dtype=torch.int8)
     proj = mc.cubes[0].family.proj
     k2 = check_k2(corpus, proj, CK, 1)
-    log(f"phase 8 K2 signproj L = 1 [{N}, {D}] x [{D}, {CK}]: {k2['rows_differ']} rows "
-        f"differ ({k2['rows_near_zero']} rows have a projection within 1e-5 |x||r| "
-        f"of 0); kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms")
+    k2["geometry"] += " (cosine cube vertices)"
+    k2_line(8, k2)
     rows = grouped(*multicube_windows(mc, qs, 12, 488), unit(qs))
-    geoms.append(compare_k1("2 cosine MultiCube, shared slab int8", mc.packed, *rows,
-                            488, True, 256 * 3, GEOM_Q * 3))
+    geoms.append(compare_k1(f"cosine MultiCube, shared slab int8, q = {GEOM_Q}",
+                            mc.packed, *rows, 488, True))
     del mc, rows
     torch.cuda.empty_cache()
 
@@ -302,11 +392,11 @@ def phase8(corpus, queries):
                          corpus_dtype=torch.int8)
     q_aug = augment_queries(qs, mc.packed_aug_scale, mc.packed.shape[2])
     rows = grouped(*multicube_windows(mc, qs, 24, 976), q_aug)
-    geoms.append(compare_k1("3 euclidean MultiCube, shared augmented int8", mc.packed,
-                            *rows, 976, True, 256 * 9, GEOM_Q * 9))
+    geoms.append(compare_k1(f"euclidean MultiCube, shared augmented int8, q = {GEOM_Q}",
+                            mc.packed, *rows, 976, True))
     del mc, rows
     torch.cuda.empty_cache()
-    return geoms, dict(geometry="L = 1, k = 13 (cosine cube vertices)", **k2)
+    return geoms, k2
 
 
 def phase9(corpus, queries, true_idx):
@@ -316,7 +406,7 @@ def phase9(corpus, queries, true_idx):
         build_index, pack_index, query_hashes, retrieve_topk,
     )
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        augment_queries, euclid_window_offsets, slab_window_dots,
+        augment_queries, euclid_window_offsets,
     )
     from crypto_rec_tpu_torch.ops.oracle import recall_at_k
 
@@ -358,7 +448,10 @@ def phase9(corpus, queries, true_idx):
 
     t_win = cuda_ms(windows)
     s0, sizes, q_aug = windows()
-    t_k1 = cuda_ms(lambda: slab_window_dots(pidx.packed, s0, sizes, q_aug, E_PT, mask=False))
+    k1 = k1_time(f"euclidean LSH, augmented int8, q = {CQ}", pidx.packed, s0, sizes,
+                 q_aug, E_PT, False, rounds=3)
+    k1_line(9, k1)
+    t_k1 = k1["ms"]
     log(f"phase 9 euclidean LSH k={E_K} L={E_L} w={E_W} window {E_PT} int8 augmented "
         f"(slabs {list(pidx.packed.shape)}): build {t_build:.3f} s, pack {t_pack:.3f} s; "
         f"q={CQ}: retrieval {t_ret:.3f} ms ({CQ / t_ret * 1e3:,.0f} q/s); device "
@@ -370,7 +463,8 @@ def phase9(corpus, queries, true_idx):
     torch.cuda.empty_cache()
     return eidx, dict(launches=launches, build_s=t_build, pack_s=t_pack,
                       retrieval_ms=t_ret, qps=CQ / t_ret * 1e3, device_ms=t_dev,
-                      windows_ms=t_win, k1_ms=t_k1, recall=recall, floor=E_FLOOR)
+                      windows_ms=t_win, k1_ms=t_k1, recall=recall, floor=E_FLOOR,
+                      k1=k1)
 
 
 def cube_leg(corpus, queries, true_idx, name, metric, cubes, probes, per_probe, w,
@@ -380,9 +474,7 @@ def cube_leg(corpus, queries, true_idx, name, metric, cubes, probes, per_probe, 
         build_hypercube, build_multicube, cube_retrieve_topk, cube_windows,
         multicube_retrieve_topk, multicube_windows, pack_cube,
     )
-    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        augment_queries, slab_window_dots,
-    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import augment_queries
     from crypto_rec_tpu_torch.ops.oracle import recall_at_k
 
     qs = queries[:CQ]
@@ -425,8 +517,12 @@ def cube_leg(corpus, queries, true_idx, name, metric, cubes, probes, per_probe, 
           else augment_queries(qs, obj.packed_aug_scale, obj.packed.shape[2]))
     t_win = cuda_ms(windows, reps=3)      # probe vertices (K2 for cosine) + offsets
     rows = grouped(*windows(), qk)
-    t_k1 = cuda_ms(lambda: slab_window_dots(obj.packed, *rows, per_probe, mask=False,
-                                            shared_slab=True), reps=3)
+    # the plain version takes seconds a call on the euclidean cubes: it is
+    # checked at their geometry in phase 8 and not timed here
+    k1 = k1_time(f"{name}, q = {CQ}", obj.packed, *rows, per_probe, True,
+                 plain=metric == "cosine", rounds=3)
+    k1_line(10, k1)
+    t_k1 = k1["ms"]
     log(f"phase 10 {name}: C={cubes} k={CK} probes={probes}/cube window {per_probe} "
         f"(slab {list(obj.packed.shape)}): build + pack {t_build:.3f} s; q={CQ}: "
         f"retrieval {t_ret:.3f} ms ({CQ / t_ret * 1e3:,.0f} q/s); device {t_dev:.3f} ms "
@@ -438,7 +534,7 @@ def cube_leg(corpus, queries, true_idx, name, metric, cubes, probes, per_probe, 
     torch.cuda.empty_cache()
     return dict(launches=launches, build_pack_s=t_build, retrieval_ms=t_ret,
                 qps=CQ / t_ret * 1e3, device_ms=t_dev, windows_ms=t_win, k1_ms=t_k1,
-                recall=recall, floor=floor)
+                recall=recall, floor=floor, k1=k1)
 
 
 def phase11(eidx, corpus, q_host, true_host):
@@ -493,8 +589,25 @@ def _same_recall(label, ids_k, ids_p, truth):
     return dict(recall=rk, plain_recall=rp)
 
 
-def _timed_pair(kern, plain):
-    return dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=3))
+def _timed_pair(kern, plain, p, row_bytes, rowwise=None):
+    """Kernel and plain version (and K1's row-wise body) in alternating
+    rounds, with the bound of the kernel's call on the probe's windows:
+    covered slab rows x row_bytes, the queries and the kernel's outputs,
+    2 d FLOP a window lane on bf16 tensor cores.  No one PyTorch call
+    computes a probe kernel's function (a gather and an einsum are two):
+    library_ms is None."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry, window_len
+
+    t = rounds_ms({"ms": kern, "prev_ms": rowwise, "plain_ms": plain})
+    if rowwise is None:
+        del t["prev_ms"]
+    outs = [o for o in kern() if isinstance(o, torch.Tensor)]
+    row0 = _geometry(p.packed, p.s0, None, p.per_table, False)[2]
+    b = bounds.window_call(row0, window_len(p.per_table),
+                           p.packed.shape[0] * p.packed.shape[1], row_bytes,
+                           p.packed.shape[2], inputs=(p.qv,), outputs=outs)
+    return with_bound(dict(library_ms=None, **t), b)
 
 
 def check_binned(p):
@@ -528,7 +641,8 @@ def check_binned(p):
         a = (p.packed, p.s0, p.qv, p.per_table, nbins)
         res = dict(geometry=f"{dname} nbins {nbins}, q = {PQ}", max_abs_err=err,
                    pos_near_ties=int((~clear).sum()),
-                   **_timed_pair(lambda: binned_dots(*a), lambda: binned_dots_plain(*a)))
+                   **_timed_pair(lambda: binned_dots(*a), lambda: binned_dots_plain(*a),
+                                 p, p.packed.shape[2] * p.packed.element_size()))
         win = window_len(p.per_table)
         ids = [binned_topk(*f(*a), p.packed_rows, win, p.n_rows, TOP_K)[1]
                for f in (binned_dots, binned_dots_plain)]
@@ -558,7 +672,8 @@ def check_int4(p):
     a = (p4, p.s0, p.qv, p.per_table)
     res = dict(geometry=f"uint8 {list(p4.shape)}, q = {P6Q}", max_abs_err=err,
                **_timed_pair(lambda: slab_window_dots_int4(*a),
-                             lambda: slab_window_dots_int4_plain(*a)))
+                             lambda: slab_window_dots_int4_plain(*a), p,
+                             p.packed.shape[2] / 2))
     ids = [slab_topk_int4(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
            for f in (slab_window_dots_int4, slab_window_dots_int4_plain)]
     res.update(_same_recall("P6 int4", *ids, p.true_idx))
@@ -596,7 +711,8 @@ def check_variants(p16, p8):
         a = (p.packed, p.s0, qv, p.per_table, mode)
         res = dict(geometry=f"{mode} {dname}, q = {PQ}", max_abs_err=err,
                    **_timed_pair(lambda: slab_window_variant(*a),
-                                 lambda: slab_window_variant_plain(*a)))
+                                 lambda: slab_window_variant_plain(*a), p,
+                                 p.packed.shape[2] * p.packed.element_size()))
         if mode == "i8_dot":
             ids = [slab_topk(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
                    for f in (slab_window_variant, slab_window_variant_plain)]
@@ -624,7 +740,8 @@ def check_blk(p):
     err = _close(f"blk {dname}", dk, dp)
     a = (blk, p.s0, p.qv, p.per_table)
     res = dict(geometry=f"{dname} {list(blk.shape)}, q = {PQ}", max_abs_err=err,
-               **_timed_pair(lambda: blk_window_dots(*a), lambda: blk_window_dots_plain(*a)))
+               **_timed_pair(lambda: blk_window_dots(*a), lambda: blk_window_dots_plain(*a),
+                             p, p.packed.shape[2] * p.packed.element_size()))
     log(f"phase 12 blk_window_dots {dname}: max |err| {err:.3g} over {CHECK_Q} queries; "
         f"q={PQ}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
     return res
@@ -635,7 +752,7 @@ def check_k1_probes(p16, p8):
     against the plain version, times at q = PQ, and P4's vpu recall of
     both paths."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        slab_topk, slab_window_dots, slab_window_dots_plain,
+        slab_topk, slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise,
     )
 
     out = []
@@ -647,13 +764,17 @@ def check_k1_probes(p16, p8):
         a = (p.packed, p.s0, p.sizes, p.qv, p.per_table)
         res = dict(geometry=f"mask off {dname}, q = {PQ}", max_abs_err=err,
                    **_timed_pair(lambda: slab_window_dots(*a, mask=False),
-                                 lambda: slab_window_dots_plain(*a, mask=False)))
+                                 lambda: slab_window_dots_plain(*a, mask=False), p,
+                                 p.packed.shape[2] * p.packed.element_size(),
+                                 rowwise=lambda: slab_window_dots_rowwise(*a, mask=False)))
         if p is p8:
             ids = [slab_topk(*f(*a, mask=False), p.packed_rows, p.n_rows, TOP_K)[1]
                    for f in (slab_window_dots, slab_window_dots_plain)]
             res.update(_same_recall("P4 vpu", *ids, p.true_idx))
         log(f"phase 12 K1 (P1 dots_nomask) {dname}: max |err| {err:.3g} over {CHECK_Q} "
-            f"queries; q={PQ}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+            f"queries; q={PQ}: tile-major {res['ms']:.3f} ms, row-wise "
+            f"{res['prev_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
         out.append(res)
     return out
 
@@ -739,7 +860,7 @@ def main() -> int:
     from crypto_rec_tpu_torch.ops.kernels import build
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        _window_offsets, slab_topk, slab_window_dots, slab_window_dots_plain,
+        _window_offsets, slab_topk, slab_window_dots,
     )
     from crypto_rec_tpu_torch.ops.oracle import exact_nearest, recall_at_k
 
@@ -749,10 +870,12 @@ def main() -> int:
     sync = torch.cuda.synchronize
 
     # ---- 1. device ----
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    CARD = smi
     log(smi)
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
@@ -771,10 +894,8 @@ def main() -> int:
         gen, N, D, max(BATCHES), TOP_K)
     proj = CosineLsh.create(torch.Generator().manual_seed(SEED + 1), D, K, L, dev).proj
     k2 = check_k2(corpus, proj, K, L)
-    k2_err, k2_ms, k2_plain_ms = k2["max_abs_err"], k2["ms"], k2["plain_ms"]
-    log(f"phase 3 K2 signproj [{N}, {D}] x [{D}, {L * K}]: {k2['rows_differ']} rows "
-        f"differ ({k2['rows_near_zero']} rows have a projection within 1e-5 |x||r| "
-        f"of 0); kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+    k2["geometry"] += " (the index build)"
+    k2_line(3, k2)
 
     # ---- 4. K1 against its plain version (the slice's int8 index) ----
     index = pack_index(build_index(None, corpus, "cosine", K, L,
@@ -783,27 +904,24 @@ def main() -> int:
     qv = torch.nn.functional.normalize(queries_all[:BATCHES[0]], dim=1)
     qb, _ = query_hashes(index, qv)
     s0, sizes = _window_offsets(index.bucket_starts, qb, PER_TABLE)
-    k1_err = 0.0
-    for mask in (True, False):
-        a = (index.packed, s0[:256], sizes[:256], qv[:256], PER_TABLE)
-        dk, ak = slab_window_dots(*a, mask=mask)
-        dp, ap = slab_window_dots_plain(*a, mask=mask)
-        sync()
-        if not torch.equal(ak, ap):
-            raise AssertionError("K1: aligned starts differ")
-        if not torch.allclose(dk, dp, rtol=1e-5, atol=1e-4):
-            raise AssertionError("K1: dots differ beyond rtol 1e-5, atol 1e-4")
-        fin = torch.isfinite(dp)
-        if not torch.equal(fin, torch.isfinite(dk)):
-            raise AssertionError("K1: masked lanes differ")
-        k1_err = max(k1_err, float((dk[fin] - dp[fin]).abs().max()))
-    a = (index.packed, s0, sizes, qv, PER_TABLE)
-    k1_ms = cuda_ms(lambda: slab_window_dots(*a, mask=False))
-    k1_plain_ms = cuda_ms(lambda: slab_window_dots_plain(*a, mask=False))
-    log(f"phase 4 K1 slab_window_dots int8 [8 x {index.packed.shape[1]} x {D}], "
-        f"256 queries, mask on/off: max |err| {k1_err:.3g}; q={BATCHES[0]}: "
-        f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
-    del index, a
+    k1_geoms = []
+    k1_err = k1_check("CF leg", index.packed, s0, sizes, qv, PER_TABLE, False)
+    k1_main = k1_time(f"CF leg, q = {BATCHES[0]}", index.packed, s0, sizes, qv,
+                      PER_TABLE, False)
+    k1_main["max_abs_err"] = k1_err
+    k1_line(4, k1_main, k1_err)
+    # a hot tile: half the queries on the first query's buckets
+    hot = BATCHES[0] // 2
+    s0h, sizesh = s0.clone(), sizes.clone()
+    s0h[:hot], sizesh[:hot] = s0[0], sizes[0]
+    err_hot = k1_check("hot tile", index.packed, s0h, sizesh, qv, PER_TABLE, False)
+    e = k1_time(f"CF leg, hot tile ({hot} queries on one window set), q = {BATCHES[0]}",
+                index.packed, s0h, sizesh, qv, PER_TABLE, False)
+    e["max_abs_err"] = err_hot
+    k1_line(4, e, err_hot)
+    k1_geoms.append(e)
+    k1_err = max(k1_err, err_hot)
+    del index, s0h, sizesh
 
     # ---- 5. the slice end to end ----
     kq = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -880,8 +998,11 @@ def main() -> int:
         t_hash = cuda_ms(lambda: query_hashes(pidx, qv))
         qb, _ = query_hashes(pidx, qv)
         s0, sizes = _window_offsets(pidx.bucket_starts, qb, PER_TABLE)
-        t_k1 = cuda_ms(lambda: slab_window_dots(pidx.packed, s0, sizes, qv,
-                                                PER_TABLE, mask=False))
+        k1 = k1_time(f"CF leg, q = {qn}", pidx.packed, s0, sizes, qv, PER_TABLE, False,
+                     rounds=3)
+        k1_line(5, k1)
+        k1_geoms.append(k1)
+        t_k1 = k1["ms"]
         dots, a0 = slab_window_dots(pidx.packed, s0, sizes, qv, PER_TABLE, mask=False)
         t_epi = cuda_ms(lambda: slab_topk(dots, a0, pidx.packed_rows, N, TOP_P,
                                           exact=False, stage1_per_table=12))
@@ -954,10 +1075,12 @@ def main() -> int:
     del index, pidx, nset, n_known, qset, qset0, sims, nidx
     torch.cuda.empty_cache()
     geoms, k2_l1 = phase8(corpus, queries_all)
+    k1_geoms += geoms
     eidx, euclid = phase9(corpus, queries_all, true_all)
     paths = {"euclidean LSH": euclid}
     for i, leg in enumerate(CUBE_LEGS):
         paths[leg[0]] = cube_leg(corpus, queries_all, true_all, *leg, seed=SEED + 30 + i)
+    k1_geoms += [r.pop("k1") for r in paths.values()]
     serving = phase11(eidx, corpus, q_host, true_host)
     del eidx
     torch.cuda.empty_cache()
@@ -966,18 +1089,21 @@ def main() -> int:
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
 
+    row_keys = ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")
     kernels = [
         dict(name="signproj_bucket_ids", route="cuda",
              source="crypto_rec_tpu_torch/csrc/signproj.cu",
              replaces="crypto_rec_tpu/ops/pallas/signproj.py:61",
-             launches=launches["signproj_bucket_ids"], max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=k2_plain_ms, geometries=[k2_l1],
+             launches=launches["signproj_bucket_ids"], max_abs_err=k2["max_abs_err"],
+             **{key: k2[key] for key in row_keys}, card=CARD, geometries=[k2, k2_l1],
              path_launches=path_launches("signproj_bucket_ids")),
         dict(name="slab_window_dots", route="cuda",
-             source="crypto_rec_tpu_torch/csrc/slabscore.cu",
+             source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
              launches=launches["slab_window_dots"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms, geometries=geoms,
+             **{key: k1_main[key] for key in row_keys}, card=CARD,
+             geometries=[k1_main] + k1_geoms,
              path_launches=path_launches("slab_window_dots")),
     ]
 
@@ -986,12 +1112,13 @@ def main() -> int:
         worst error and the first geometry's times."""
         return dict(name=name, route="cuda", source=f"crypto_rec_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=probe_launches[name],
-                    max_abs_err=max(r["max_abs_err"] for r in rows), ms=rows[0]["ms"],
-                    plain_ms=rows[0]["plain_ms"], geometries=rows, **extra)
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    **{key: rows[0].get(key) for key in row_keys}, card=CARD,
+                    geometries=rows, **extra)
 
     variants = probe_checks["variants"]
     kernels += [
-        probe_row("slab_window_dots", "slabscore.cu",
+        probe_row("slab_window_dots", "slabtile.cu",
                   "benchmarks/experiments/probe_r3_mask.py:114", probe_checks["k1"],
                   note="P1 dots_nomask, and the vpu modes of P2 and P4: K1 with mask off"),
         probe_row("binned_dots", "binned.cu", "benchmarks/experiments/probe_r3_binned.py:98",

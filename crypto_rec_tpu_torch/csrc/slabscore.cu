@@ -1,4 +1,9 @@
-// K1: slab-window dot products, the packed-index retrieval hot loop.
+// K1, row-wise body: slab-window dot products, one block per window.
+//
+// The main path runs the tile-major body in slabtile.cu.  This one stays
+// compiled as crt_slab_window_dots_rowwise so a run on the card can time
+// the two designs against each other on the same inputs; nothing on the
+// serving or probe paths calls it.
 //
 // Replaces the TPU kernel crypto_rec_tpu/ops/pallas/slabscore.py
 // (slab_window_dots, pallas_call at :360; bodies _make_kernel_fused
@@ -125,7 +130,7 @@ int launch(const void* slab, const void* queries, const void* row0,
 
 }  // namespace
 
-extern "C" int crt_slab_window_dots(const void* slab, const void* queries,
+extern "C" int crt_slab_window_dots_rowwise(const void* slab, const void* queries,
                                     const void* row0, const void* head,
                                     const void* size, void* dots, int q, int T,
                                     int win, int d, int mask, int dtype,

@@ -12,11 +12,14 @@ N(0, 1) corpus (timing only, no recall), bf16 slabs, q = 8,192:
      rounded to bf16).  The probe's nbuf / q_tile sweeps are TPU pipeline
      knobs with no counterpart here.
 
-"zeros" and "vpu" run in alternating rounds (`floor_vs_k1`), so the load
-floor is compared with K1 inside each round; it prints the medians, their
-spread and the per-round ratio, and the two logical window rates.  The
-load floor writes K1's [q, L, win] f32 output as K1 does, so it bounds
-K1's loop (loads and output writes), not the loads alone.
+"zeros", K1's row-wise body (one block per window) and "vpu" (the
+tile-major K1) run in alternating rounds (`floor_vs_k1`), so the load
+floor is compared inside each round with the access pattern it bounds;
+it prints the medians, their spread, the per-round ratio floor /
+row-wise, and the logical window rates.  The load floor reads every
+window from memory and writes K1's [q, L, win] f32 output, as the
+row-wise body does: it bounds that body's loop, not the tile-major
+kernel, which reads each covered slab row about once.
 
     python -m crypto_rec_tpu_torch.experiments.probe_r3_split [--n N] [--q Q]
 """
@@ -30,7 +33,7 @@ import torch
 from crypto_rec_tpu_torch.experiments import _common as C
 from crypto_rec_tpu_torch.models.lsh.index import pack_index
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    slab_topk, slab_window_dots, window_len,
+    slab_topk, slab_window_dots, slab_window_dots_rowwise, window_len,
 )
 from crypto_rec_tpu_torch.ops.kernels.slabvariants import PROBE_MODES, slab_window_variant
 
@@ -39,38 +42,44 @@ ROUNDS = 31
 
 
 def floor_vs_k1(p: C.ProbeIndex, rounds: int = ROUNDS) -> dict:
-    """K1 without the mask and the load floor on the same windows, in
-    `rounds` alternating rounds: each one's times, and the per-round ratio
-    load floor / K1.  Works on int8 and bf16 slabs."""
+    """The load floor against the access pattern it bounds, K1's row-wise
+    body without the mask (one block per window), in `rounds` alternating
+    rounds with the tile-major K1 on the same windows: each one's times,
+    and the per-round ratio load floor / row-wise K1.  Works on int8 and
+    bf16 slabs."""
+    args = (p.packed, p.s0, p.sizes, p.qv, p.per_table)
     times = C.timed_alternating({
-        "vpu": lambda: slab_window_dots(p.packed, p.s0, p.sizes, p.qv, p.per_table,
-                                        mask=False),
+        "rowwise": lambda: slab_window_dots_rowwise(*args, mask=False),
         "zeros": lambda: slab_window_variant(p.packed, p.s0, p.qv, p.per_table,
                                              "load_floor"),
+        "vpu": lambda: slab_window_dots(*args, mask=False),
     }, p.packed.device, rounds)
-    k1, floor = times["vpu"], times["zeros"]
-    res = dict(dtype=str(p.packed.dtype)[6:], rounds=rounds, k1_rounds_ms=k1,
-               floor_rounds_ms=floor,
-               ratio_rounds=None if k1 is None else [f / k for f, k in zip(floor, k1)])
-    for key, xs in (("vpu_ms", k1), ("zeros_ms", floor)):
+    row, floor, k1 = times["rowwise"], times["zeros"], times["vpu"]
+    res = dict(dtype=str(p.packed.dtype)[6:], rounds=rounds, rowwise_rounds_ms=row,
+               floor_rounds_ms=floor, k1_rounds_ms=k1,
+               ratio_rounds=None if row is None else [f / r for f, r in zip(floor, row)])
+    for key, xs in (("rowwise_ms", row), ("zeros_ms", floor), ("vpu_ms", k1)):
         res[key] = None if xs is None else statistics.median(xs)
     q, L, d = p.qv.shape[0], p.packed.shape[0], p.packed.shape[2]
     window_bytes = q * L * window_len(p.per_table) * d * p.packed.element_size()
     res["window_gb"] = window_bytes / 1e9
     res["load_floor_gbps"] = C.gbps(window_bytes, res["zeros_ms"])
+    res["rowwise_gbps"] = C.gbps(window_bytes, res["rowwise_ms"])
     res["k1_gbps"] = C.gbps(window_bytes, res["vpu_ms"])
     return res
 
 
 def report_floor(res: dict) -> None:
-    print(f"load floor vs K1 ({res['dtype']}, {res['rounds']} alternating rounds, "
-          f"median (min-max)): load floor {C.spread(res['floor_rounds_ms'])} ms, "
-          f"K1 {C.spread(res['k1_rounds_ms'])} ms, per-round ratio "
-          f"{C.spread(res['ratio_rounds'])}", flush=True)
+    print(f"load floor vs row-wise K1 ({res['dtype']}, {res['rounds']} alternating "
+          f"rounds, median (min-max)): load floor {C.spread(res['floor_rounds_ms'])} ms, "
+          f"row-wise K1 {C.spread(res['rowwise_rounds_ms'])} ms, per-round ratio "
+          f"{C.spread(res['ratio_rounds'])}; tile-major K1 "
+          f"{C.spread(res['k1_rounds_ms'])} ms", flush=True)
     if res["load_floor_gbps"] is not None:
         print(f"logical window bytes {res['window_gb']:.2f} GB: load floor "
-              f"{res['load_floor_gbps']:.0f} GB/s, K1 (vpu) {res['k1_gbps']:.0f} GB/s",
-              flush=True)
+              f"{res['load_floor_gbps']:.0f} GB/s, row-wise K1 "
+              f"{res['rowwise_gbps']:.0f} GB/s, tile-major K1 (vpu) "
+              f"{res['k1_gbps']:.0f} GB/s", flush=True)
 
 
 def run_split(p: C.ProbeIndex, top_k: int = C.TOP_K) -> dict:

@@ -6,6 +6,8 @@
 `signproj_bucket_ids` routes by device: a CUDA tensor launches the Hopper
 kernel in `csrc/signproj.cu` (and raises if it cannot), a CPU tensor runs
 `signproj_bucket_ids_plain`, the plain PyTorch version of the same function.
+`signproj_bucket_ids_prev` is the previous design (`csrc/signproj_prev.cu`),
+kept for side-by-side timing on the card.
 Replaces the TPU kernel `crypto_rec_tpu/ops/pallas/signproj.py`.
 """
 
@@ -59,6 +61,30 @@ def signproj_bucket_ids(
     if not x.is_cuda:
         return signproj_bucket_ids_plain(x, proj, k, L)
     _check(x, proj, k, L)
+    out = _launch("crt_signproj", x, proj, k, L)
+    signproj_bucket_ids.launches += 1
+    return out
+
+
+signproj_bucket_ids.launches = 0
+
+
+def signproj_bucket_ids_prev(
+    x: torch.Tensor, proj: torch.Tensor, k: int, L: int
+) -> torch.Tensor:
+    """K2's previous design (`csrc/signproj_prev.cu`), kept so a run on the
+    card can time it beside the streamed kernel on the same inputs; no
+    path of the package calls it.  CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return signproj_bucket_ids_plain(x, proj, k, L)
+    _check(x, proj, k, L)
+    return _launch("crt_signproj_prev", x, proj, k, L)
+
+
+_MAX_L = 64                       # the kernel's (row group, table) units a block
+
+
+def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
     if x.dtype != torch.float32 or proj.dtype != torch.float32:
         raise TypeError("the signproj kernel takes float32 x and proj")
     if proj.device != x.device:
@@ -66,19 +92,17 @@ def signproj_bucket_ids(
     n, d = x.shape
     if d % 4:
         raise ValueError(f"the signproj kernel needs d % 4 == 0, got d={d}")
+    if L > _MAX_L:
+        raise ValueError(f"the signproj kernel takes at most {_MAX_L} tables, got L={L}")
     x = x.contiguous()
     proj = proj.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("the signproj kernel reads x as 16-byte aligned rows")
     out = torch.empty(n, L, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = build.library().crt_signproj(
+        err = getattr(build.library(), entry)(
             x.data_ptr(), proj.data_ptr(), out.data_ptr(), n, d, k, L,
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, "signproj")
-    signproj_bucket_ids.launches += 1
+    build.check(err, entry)
     return out
-
-
-signproj_bucket_ids.launches = 0

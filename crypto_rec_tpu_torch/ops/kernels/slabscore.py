@@ -4,8 +4,10 @@ Replaces the TPU kernel `crypto_rec_tpu/ops/pallas/slabscore.py`.  For
 each query and each of its T table windows, `slab_window_dots` dots the
 f32 query with every row of the window in the CSR-ordered slab copy
 (int8, bf16 or f32, upcast to f32 before the multiply).  A CUDA tensor
-launches the Hopper kernel in `csrc/slabscore.cu` (or raises); a CPU tensor
-runs `slab_window_dots_plain`, a gather + f32 einsum chunked over queries.
+launches the tile-major Hopper kernel in `csrc/slabtile.cu` (or raises); a
+CPU tensor runs `slab_window_dots_plain`, a gather + f32 einsum chunked
+over queries.  `slab_window_dots_rowwise` is the previous design
+(`csrc/slabscore.cu`), kept for side-by-side timing on the card.
 
 The window geometry is the JAX kernel's, computed here in plain torch so
 outputs match lane for lane: each start is aligned DOWN to `ALIGN` rows
@@ -153,6 +155,125 @@ def slab_window_dots_plain(
     return dots, aligned
 
 
+def split_bf16x3(queries: torch.Tensor) -> torch.Tensor:
+    """[q, d] f32 -> [q, 3, d] bf16 terms hi, mid, lo with hi + mid + lo ==
+    q to f32 precision: each term rounds what the ones before it left.
+    int8 and bf16 slab values are exact in bf16, so the three bf16 products
+    summed in f32 keep f32 accuracy; hi + mid alone leaves ~2^-16 of |q|
+    (beyond K1's tolerance on raw int8 dots).  The tensor-core K1 does this
+    split in registers as it stages each query (`split3` in
+    `csrc/slabtile.cu`); this is its plain statement, which the tests
+    hold to the tolerance."""
+    q = queries.float()
+    hi = q.to(torch.bfloat16)
+    r = q - hi.float()
+    mid = r.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)], dim=1)
+
+
+def tile_shape(dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """(RT tile rows, M pairs per work item) of the tile-major K1 for a slab
+    dtype and row width: the tensor-core body takes 32 pairs and tiles of
+    256 rows (128 above d = 128: a tile's bf16 rows stay at 64 KB); f32
+    slabs 32 and 32."""
+    if dtype == torch.float32:
+        return 32, 32
+    return (256 if d <= 128 else 128), 32
+
+
+def tile_work(row0: torch.Tensor, win: int, n_rows: int, rt: int, m: int):
+    """The tile-major K1's work list, plain torch on row0's device.
+
+    row0: [P] absolute first rows of the windows [row0, row0 + win) in a
+    flat slab of n_rows rows.  The pairs are sorted by row0; the slab is cut
+    into tiles of rt rows; the pairs whose windows meet tile j have row0 in
+    (j rt - win, (j + 1) rt), a contiguous range of the sorted list, cut
+    into work items of at most m pairs.  The item count is an upper bound
+    from the shapes alone (n_tiles + ceil(P (ceil(win / rt) + 1) / m)), so
+    nothing waits on the device; the real items come first and every item
+    after them has count 0.
+
+    -> (pairs [P] int32 sorted by row0, item_tile, item_lo, item_cnt [I]
+    int32: tile, first sorted position and pair count of each item)."""
+    dev = row0.device
+    P = row0.numel()
+    sr, order = torch.sort(row0.reshape(-1).to(torch.int32))
+    n_tiles = -(-n_rows // rt)
+    t0 = torch.arange(0, n_tiles * rt, rt, device=dev, dtype=torch.int32)
+    # lo: first row0 > t0 - win; hi: first row0 >= t0 + rt
+    lo, hi = torch.searchsorted(sr, torch.stack([t0 - (win - 1), t0 + rt]), out_int32=True)
+    per = torch.div(hi - lo + (m - 1), m, rounding_mode="floor")  # items of each tile
+    cum = torch.cumsum(per, 0, dtype=torch.int32)
+    n_items = n_tiles + -(-P * (-(-win // rt) + 1) // m)
+    i = torch.arange(n_items, device=dev, dtype=torch.int32)
+    tile = torch.searchsorted(cum, i, right=True, out_int32=True).clamp_(max=n_tiles - 1)
+    # per tile: the sorted position item i would start at, less i m; past
+    # the real items tile is the last one and its start passes hi, so the
+    # count clamps to 0
+    base_hi = torch.stack([lo - (cum - per) * m, hi])[:, tile]
+    item_lo = base_hi[0] + i * m
+    cnt = (base_hi[1] - item_lo).clamp_(0, m)
+    return order.to(torch.int32), tile, item_lo, cnt
+
+
+def tile_plan(packed: torch.Tensor, row0, head, size, win: int):
+    """The work list for one K1 call and its pairs' fields in sorted order:
+    -> (meta int32 [4, P] (pair id, row0, head, head + size), or [2, P]
+    without the mask (size None); item_tile, item_lo, item_cnt)."""
+    n_rows = packed.shape[0] * packed.shape[1]
+    rt, m = tile_shape(packed.dtype, packed.shape[2])
+    pairs, item_tile, item_lo, item_cnt = tile_work(row0, win, n_rows, rt, m)
+    p = pairs.long()
+    if size is None:
+        return torch.stack([pairs, row0.reshape(-1)[p]]), item_tile, item_lo, item_cnt
+    fields = torch.stack([row0.reshape(-1), head.reshape(-1), (head + size).reshape(-1)])
+    return torch.cat([pairs[None], fields[:, p]]), item_tile, item_lo, item_cnt
+
+
+def tile_launch(packed: torch.Tensor, queries: torch.Tensor, plan,
+                dots: torch.Tensor, mask: bool) -> None:
+    """Launch the tile-major kernel (`csrc/slabtile.cu`) on a plan from
+    `tile_plan` and contiguous, 16-byte aligned f32 queries [q, d].
+    Writes dots [q, T, win]."""
+    meta, item_tile, item_lo, item_cnt = plan
+    d = packed.shape[2]
+    rt, m = tile_shape(packed.dtype, d)
+    with torch.cuda.device(packed.device):
+        err = build.library().crt_slab_tile_dots(
+            packed.data_ptr(), queries.data_ptr(), meta.data_ptr(), item_tile.data_ptr(),
+            item_lo.data_ptr(), item_cnt.data_ptr(), dots.data_ptr(), item_tile.numel(),
+            meta.shape[1], dots.shape[1], dots.shape[2], d,
+            packed.shape[0] * packed.shape[1], int(mask),
+            _DTYPE_CODE[packed.dtype], rt, m, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "slab_window_dots")
+
+
+def _check_tile_slab(packed: torch.Tensor) -> None:
+    d = packed.shape[2]
+    if packed.dtype == torch.float32:
+        ok = d % 4 == 0 and d <= 256
+    else:
+        ok = d % 64 == 0 and d <= 256
+    if not ok:
+        raise ValueError(f"the tile-major slab kernel takes d <= 256 with d % "
+                         f"{4 if packed.dtype == torch.float32 else 64} == 0 "
+                         f"for {str(packed.dtype)[6:]} slabs, got d={d}")
+    if packed.numel() // d >= 1 << 31:
+        raise ValueError("the slab kernel indexes rows with int32")
+
+
+def _cuda_args(packed, starts, sizes, queries, per_table, mask, shared_slab):
+    """Checks and geometry shared by the two CUDA bodies; size is None
+    with the mask off."""
+    _check_sizes(sizes, mask)
+    check_row_slab("the slab kernel", packed, starts, queries, _DTYPE_CODE)
+    win, aligned, row0, head, size = _geometry(
+        packed, starts, sizes if mask else None, per_table, shared_slab
+    )
+    return win, aligned, row0.contiguous(), head.contiguous(), size
+
+
 def slab_window_dots(
     packed: torch.Tensor,
     starts: torch.Tensor,
@@ -168,35 +289,71 @@ def slab_window_dots(
     shared_slab=True: `packed` is ONE slab ([1, n_pad, d]) that every one
     of the starts.shape[1] windows reads (the hypercube form).
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors the tile-major Hopper
+    kernel (`csrc/slabtile.cu`); its work list (`tile_plan`) runs here on
+    the device, inside K1's time."""
     if not packed.is_cuda:
         return slab_window_dots_plain(
             packed, starts, sizes, queries, per_table, mask, shared_slab
         )
-    _check_sizes(sizes, mask)
-    check_row_slab("the slab kernel", packed, starts, queries, _DTYPE_CODE)
-    d = packed.shape[2]
-    win, aligned, row0, head, size = _geometry(
-        packed, starts, sizes, per_table, shared_slab
-    )
+    _check_tile_slab(packed)
+    win, aligned, row0, head, size = _cuda_args(
+        packed, starts, sizes, queries, per_table, mask, shared_slab)
     q, T = starts.shape
-    qv = queries.float().contiguous()
-    if size is None:            # mask=False: the kernel reads but ignores it
-        size = torch.zeros_like(head)
-    row0, head, size = row0.contiguous(), head.contiguous(), size.contiguous()
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    if q == 0:
+        return dots, aligned
+    qv = queries.float().contiguous()
+    if qv.data_ptr() % 16:
+        qv = qv.clone()
     with torch.cuda.device(packed.device):
-        err = build.library().crt_slab_window_dots(
-            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), head.data_ptr(),
-            size.data_ptr(), dots.data_ptr(), q, T, win, d, int(mask),
-            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "slab_window_dots")
+        plan = tile_plan(packed, row0, head, size, win)
+    tile_launch(packed, qv, plan, dots, mask)
     slab_window_dots.launches += 1
     return dots, aligned
 
 
 slab_window_dots.launches = 0
+
+
+def slab_window_dots_rowwise(
+    packed: torch.Tensor,
+    starts: torch.Tensor,
+    sizes,
+    queries: torch.Tensor,
+    per_table: int,
+    mask: bool = True,
+    shared_slab: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's previous design, one block per window (`csrc/slabscore.cu`),
+    kept so a run on the card can time it beside the tile-major kernel on
+    the same inputs.  Same function and arguments as `slab_window_dots`;
+    no serving or probe path calls it.  CPU tensors take the plain
+    version."""
+    if not packed.is_cuda:
+        return slab_window_dots_plain(
+            packed, starts, sizes, queries, per_table, mask, shared_slab
+        )
+    win, aligned, row0, head, size = _cuda_args(
+        packed, starts, sizes, queries, per_table, mask, shared_slab)
+    q, T = starts.shape
+    d = packed.shape[2]
+    qv = queries.float().contiguous()
+    if size is None:            # mask off: the kernel reads but ignores it
+        size = torch.zeros_like(head)
+    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = build.library().crt_slab_window_dots_rowwise(
+            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), head.data_ptr(),
+            size.data_ptr(), dots.data_ptr(), q, T, win, d, int(mask),
+            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "slab_window_dots_rowwise")
+    slab_window_dots_rowwise.launches += 1
+    return dots, aligned
+
+
+slab_window_dots_rowwise.launches = 0
 
 
 def _dedup_topk_pairs(

@@ -12,9 +12,10 @@ scores are negated distances) unless its archive carries augmented slabs.
 
 corpus.npz holds {"vectors": [n, d]}; queries are "id,v1,v2,..." rows; each
 output line is the query id followed by tab-separated "row:score" pairs.
-The index, corpus and queries go to the CUDA device when there is one (the
-Hopper kernels run) and stay on the CPU otherwise (their plain versions
-run).  The `recommend` mode is not ported yet (ROADMAP Queue 1 item 9).
+The index, corpus and queries go to `--device`: `cuda` (the default) runs
+the Hopper kernels and exits with an error when there is no NVIDIA GPU;
+`cpu` runs the kernels' plain PyTorch versions.  The `recommend` mode is
+not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ def build_argparser() -> argparse.ArgumentParser:
         help="global-scale int8 indexes: rank raw dots and dequantize the "
              "scores (skip the exact rerank)",
     )
+    r.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="cuda (default): the Hopper kernels, and an error without a GPU; "
+             "cpu: their plain PyTorch versions",
+    )
     r.add_argument("-o", dest="output", required=True)
     return p
 
@@ -61,7 +67,12 @@ def _retrieve(args) -> int:
     from crypto_rec_tpu_torch.io.readers import read_dense_vectors
     from crypto_rec_tpu_torch.models.lsh.index import pack_index, retrieve_topk
 
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but no NVIDIA GPU is available "
+              "(pass --device cpu to run the plain PyTorch versions)",
+              file=sys.stderr)
+        return 2
+    dev = torch.device(args.device)
     index = load_index(args.index, dev)
     with np.load(args.corpus) as z:
         corpus = torch.from_numpy(z["vectors"]).to(dev)

@@ -16,6 +16,7 @@ from crypto_rec_tpu_torch.ops.kernels.signproj import (
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     slab_window_dots,
     slab_window_dots_plain,
+    slab_window_dots_rowwise,
 )
 
 
@@ -136,6 +137,105 @@ def test_slab_kernel_shared_three_segment_slab(cuda, dtype):
     assert int(a_got.max()) <= C * n_seg - 1024
     scale = want.abs().max()
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * float(scale))
+
+
+# ---- the tile-major K1 against the plain version and the row-wise body ----
+
+def _three_way(args, mask, shared, atol):
+    """New K1, row-wise K1 and plain on the same windows: aligned starts
+    and masked lanes equal, dots within rtol 1e-5 / atol."""
+    got, a_got = slab_window_dots(*args, mask=mask, shared_slab=shared)
+    row, a_row = slab_window_dots_rowwise(*args, mask=mask, shared_slab=shared)
+    want, a_want = slab_window_dots_plain(*args, mask=mask, shared_slab=shared)
+    torch.cuda.synchronize()
+    assert torch.equal(a_got, a_want) and torch.equal(a_row, a_want)
+    fin = torch.isfinite(want)
+    for out in (got, row):
+        assert torch.equal(torch.isfinite(out), fin)
+        assert torch.allclose(out[fin], want[fin], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("mask", [False, True])
+def test_tile_kernel_hot_tile(cuda, dtype, mask):
+    """Most windows on one bucket: the hot tile's pairs spread over many
+    work items."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    packed = _slabs(g, (1, 8192, 128), dtype, cuda)
+    q, group = 600, 8
+    starts = torch.randint(0, 8192, (q, group), generator=g, device=cuda, dtype=torch.int32)
+    starts[:500] = 3000
+    sizes = torch.randint(0, 600, (q, group), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, 128, generator=g, device=cuda), dim=-1)
+    _three_way((packed, starts, sizes, qv, 488), mask, True, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_tile_kernel_augmented_width(cuda, dtype):
+    """d_aug = 256 (32 pairs an item), raw queries, windows clamped at the
+    slab's end."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    T, n_pad, d, q = 4, 8192, 256, 300
+    packed = _slabs(g, (T, n_pad, d), dtype, cuda)
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    starts[:40] = n_pad - 5
+    sizes = torch.randint(0, 900, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(q, d, generator=g, device=cuda)
+    want, _ = slab_window_dots_plain(packed, starts, sizes, qv, 768, mask=False)
+    _three_way((packed, starts, sizes, qv, 768), True, False,
+               1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_tile_kernel_shared_multicube_slab(cuda, dtype):
+    """The euclidean MultiCube form: one [1, 3 n_seg, 256] slab of three
+    cube segments, absolute starts, 8 windows a row."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    C, n_seg, d, rows, group = 3, 4096, 256, 240, 8
+    packed = _slabs(g, (1, C * n_seg, d), dtype, cuda)
+    local = torch.randint(0, n_seg, (rows, group), generator=g, device=cuda, dtype=torch.int32)
+    starts = local + (torch.arange(group, device=cuda, dtype=torch.int32) % C)[None] * n_seg
+    sizes = torch.randint(0, 1100, (rows, group), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(rows, d, generator=g, device=cuda)
+    want, _ = slab_window_dots_plain(packed, starts, sizes, qv, 976, mask=False,
+                                     shared_slab=True)
+    _three_way((packed, starts, sizes, qv, 976), False, True,
+               1e-6 * float(want.abs().max()))
+
+
+def test_tile_kernel_offsets_beyond_int32(cuda):
+    """q T win = 66,000 x 32 x 1,024 > 2^31 dots: the last rows' windows
+    (offsets past 2^31) equal the plain version's on those rows alone."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    packed = _slabs(g, (1, 4096, 128), torch.int8, cuda)
+    q, group = 66000, 32
+    starts = torch.randint(0, 4096, (q, group), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, 128, generator=g, device=cuda), dim=-1)
+    got, _ = slab_window_dots(packed, starts, None, qv, 976, mask=False, shared_slab=True)
+    assert got.numel() > 2**31
+    tail = slice(q - 64, q)
+    want, _ = slab_window_dots_plain(packed, starts[tail], None, qv[tail], 976,
+                                     mask=False, shared_slab=True)
+    torch.cuda.synchronize()
+    assert torch.allclose(got[tail], want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("L", [1, 8])
+def test_signproj_kernel_ragged_tiles(cuda, L):
+    """n not a multiple of a tile (1,024 rows at L = 1, 128 at L = 8) nor
+    of the grid's stride; every row's ids equal the plain version's away
+    from projections at rounding distance of 0."""
+    n, d, k = 1_000_003, 128, 13
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(n, d, generator=g, device=cuda)
+    proj = torch.randn(d, L * k, generator=g, device=cuda)
+    got = signproj_bucket_ids(x, proj, k, L)
+    want = signproj_bucket_ids_plain(x, proj, k, L)
+    torch.cuda.synchronize()
+    acc = (x @ proj).abs() <= 1e-5 * x.norm(dim=1, keepdim=True) * proj.norm(dim=0)
+    bad = (got != want).any(1)
+    assert not (bad & ~acc.any(1)).any()
+    assert int(bad.sum()) <= int(acc.any(1).sum())
 
 
 # ---- the probe kernels P2-P6 ----

@@ -173,7 +173,7 @@ def test_lsh_phase_builds_and_caches_its_own_index(data):
 
 def test_serve_cli_answers_from_a_jax_checkpoint(data, tmp_path):
     """An index archive written by the JAX package serves through the port's
-    CLI (on CPU tensors where there is no CUDA device), with the same top-k
+    CLI (on CPU tensors, `--device cpu`), with the same top-k
     as JAX's kernel path."""
     corpus, qs = data["nset"][0], data["qset"][0]
     jax_ckpt.save_index(str(tmp_path / "idx.npz"), data["jidx"])
@@ -184,7 +184,7 @@ def test_serve_cli_answers_from_a_jax_checkpoint(data, tmp_path):
     rc = serve_cli.main([
         "retrieve", "--index", str(tmp_path / "idx.npz"),
         "--corpus", str(tmp_path / "corpus.npz"), "--queries", str(tmp_path / "q.csv"),
-        "--top-k", "10", "--per-table", str(PT), "--pack",
+        "--top-k", "10", "--per-table", str(PT), "--pack", "--device", "cpu",
         "-o", str(tmp_path / "out.tsv"),
     ])
     assert rc == 0
@@ -225,7 +225,7 @@ def test_serve_cli_augment_answers_from_a_jax_euclidean_checkpoint(data, tmp_pat
         "retrieve", "--index", str(tmp_path / "idx.npz"),
         "--corpus", str(tmp_path / "corpus.npz"), "--queries", str(tmp_path / "q.csv"),
         "--top-k", "10", "--per-table", str(PT), "--pack", "--augment",
-        "-o", str(tmp_path / "out.tsv"),
+        "--device", "cpu", "-o", str(tmp_path / "out.tsv"),
     ])
     assert rc == 0
     lines = (tmp_path / "out.tsv").read_text().splitlines()
@@ -244,3 +244,17 @@ def test_serve_cli_augment_answers_from_a_jax_euclidean_checkpoint(data, tmp_pat
     assert (got_s[:, 0] < 0).all()                 # negated distances
     # scores are printed with 5 decimals
     assert_topk_match(ws, wi, got_s, got_i, rtol=1e-5, atol=1e-5 + 5e-6)
+
+
+def test_serve_cli_device_cuda_without_a_card_exits_with_an_error(tmp_path, monkeypatch,
+                                                                  capsys):
+    """`retrieve` defaults to `--device cuda`; with no GPU it fails with a
+    message naming the missing GPU and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["retrieve", "--index", str(tmp_path / "idx.npz"), "--corpus",
+            str(tmp_path / "corpus.npz"), "--queries", str(tmp_path / "q.csv"),
+            "-o", str(tmp_path / "out.tsv")]
+    for extra in ([], ["--device", "cuda"]):
+        assert serve_cli.main(args + extra) != 0
+        assert "no NVIDIA GPU" in capsys.readouterr().err
+    assert not (tmp_path / "out.tsv").exists()
