@@ -6,8 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's serving paths at `bench.py`'s operating points on one
-2M x 128 planted corpus on the card, in twelve phases; each phase raises
-on failure:
+2M x 128 planted corpus on the card, then the recommender program and its
+10-fold CV, in fifteen phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -41,7 +41,24 @@ on failure:
      rtol 1e-5 / atol 1e-4, i8_dot and load_floor exact, binned winners
      equal away from near-ties) on 2,048 queries and timed against it;
      the recall of each retrieval path against its plain path (within
-     0.002); then one counted run of the six probes' run_* functions.
+     0.002); then one counted run of the six probes' run_* functions;
+ 13. the recommender program: `crypto_rec_tpu_torch.main -validate` (default
+     engine and device) on a synthetic reference-format dataset of 20,000
+     users, 400,000 tweets and 15 coins: phase A must take the csr engine
+     (with its truncation log) and K2 must run; the output file's four
+     headers, four "Execution Time:" lines and coin names, the phase ms,
+     the MAE and the peak device memory; a rerun in the same process must
+     write the same file; K2 against its plain version at the pipeline's
+     index shape (d = 15);
+ 14. 10-fold CV at BENCH_CV.json's point (200,000 users x 128 coins,
+     bench_cv.py's population, cosine k = 10, L = 6, budget 512, fused):
+     K1 on f32 slabs (d = 128, win 640) against its plain version on every
+     window of one fold and timed, K2 at the fold's build; then one
+     counted ten_fold_mae: K1 and K2 must run, and the MAE must lie within
+     0.03 of the JAX package's 1.4802 (the mean predictor's MAE beside it);
+ 15. candidate_ids_scored on phase 5's 2M x 128 int8 index at q = 8,192,
+     budget 256, counted: K1 must run, set recall@10 against the planted
+     truth >= 0.999.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -56,8 +73,9 @@ the unit's peak) and the card's nvidia-smi line.
 Each kernel wrapper counts its launches.  The counts are zeroed just before
 each path's counted run (phase 5: build, pack, retrieve and CF-score 8,192
 users; phases 9 and 10: build, pack and retrieve; phases 6-7 and 11 as
-wholes; phase 12: the six probes) and read just after it; each kernel of
-the path must show > 0.
+wholes; phase 12: the six probes; phase 13: the program's run; phase 14:
+ten_fold_mae; phase 15: one candidate_ids_scored call) and read just
+after it; each kernel of the path must show > 0.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, bound and share of it, every
@@ -67,7 +85,10 @@ geometry and each path's launches; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -840,6 +861,268 @@ def phase12(corpus, queries, true_idx, smi):
     return checks, res, launches
 
 
+# phase 13: the recommender program at the first size at which the JAX
+# package's "auto" rule sends phase A to the csr engine (q n = 4e8 >
+# 2.56e8); 15 coins is the generator's cap (COIN_NAMES)
+PIPE = dict(n_users=20000, n_tweets=400000, n_coins=15, emb_dim=16, p_header=20, seed=5)
+
+
+class _Records(logging.Handler):
+    """Keeps the messages a logger emits."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase13():
+    """`python -m crypto_rec_tpu_torch.main -d tweets.tsv -o out.txt -c
+    cluster.conf -validate` with the default engine and device, counted:
+    K2 must run.  Checks the csr switch and its truncation log, the four
+    headers and "Execution Time:" lines, the coin names, the summary; then
+    K2 against its plain version at the pipeline's index shape."""
+    import numpy as np
+    from crypto_rec_tpu_torch import main as rec_main
+    from crypto_rec_tpu_torch.io.ingest import CoinTable, score_tweets
+    from crypto_rec_tpu_torch.io.readers import read_lexicon, read_str_vectors
+    from crypto_rec_tpu_torch.io.synth import write_synthetic_dataset
+    from crypto_rec_tpu_torch.io.users import build_user_matrix
+    from crypto_rec_tpu_torch.config import load_config
+    from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
+    from crypto_rec_tpu_torch.models.rec import pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tweets, conf = write_synthetic_dataset(os.path.join(tmp, "ds"), **PIPE)
+        t_gen = time.perf_counter() - t0
+        out = os.path.join(tmp, "out.txt")
+        rec = _Records()
+        pipeline.log.addHandler(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # the smoke run's own tensors
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = rec_main.main(["-d", tweets, "-o", out, "-c", conf, "-validate"])
+            torch.cuda.synchronize()
+        finally:
+            pipeline.log.removeHandler(rec)
+        t_run = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        if rc != 0:
+            raise AssertionError(f"main exited {rc}")
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"phase 13 main -validate ({PIPE['n_users']} users, {PIPE['n_tweets']} tweets, "
+            f"{PIPE['n_coins']} coins; dataset written in {t_gen:.1f} s): {t_run:.1f} s, "
+            f"peak device memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+            f"held before; launches {launches}")
+        for line in rec.lines:
+            log(f"phase 13 log: {line}")
+        if not launches["signproj_bucket_ids"]:
+            raise AssertionError("the recommender program: K2 did not run")
+        if not any("switching to the csr engine" in m for m in rec.lines):
+            raise AssertionError("phase A did not take the csr engine")
+        trunc = [m for m in rec.lines if m.startswith("csr engine")]
+        if not trunc:
+            raise AssertionError("the csr engine logged no truncation stats")
+        with open(out) as f:
+            lines = f.read().splitlines()
+        cfg = load_config(conf)
+        coin_rows, _ = read_str_vectors(cfg.query_file, cfg.csv_delimiter)
+        names = {r[4] if len(r) > 4 else r[0] for r in coin_rows}
+        headers = [x for x in lines if x in ("Cosine LSH", "Clustering Recommendation")]
+        times = [x for x in lines if x.startswith("Execution Time: ")]
+        recs = [x.split(" ") for x in lines if x not in headers and x not in times]
+        if headers != ["Cosine LSH"] * 2 + ["Clustering Recommendation"] * 2:
+            raise AssertionError(f"headers {headers}")
+        if len(times) != 4:
+            raise AssertionError(f"{len(times)} Execution Time lines")
+        bad = [r for r in recs if not r[0].startswith("user") or not set(r[1:]) <= names]
+        if bad:
+            raise AssertionError(f"{len(bad)} lines name no known coin, e.g. {bad[0]}")
+        mae = summary["mae_10fold"]
+        want = {"phase0", "ingest", "lsh_A", "validate", "lsh_B", "cluster_A", "cluster_B"}
+        if set(summary["phase_ms"]) != want or not np.isfinite(mae) or mae <= 0:
+            raise AssertionError(f"summary {summary}")
+        log(f"phase 13 output: {len(recs)} recommendation lines, headers {headers}, "
+            f"{times}; {summary['n_users']} users, {summary['n_fake_users']} virtual "
+            f"users; phase ms {summary['phase_ms']}; 10-fold CV MAE {mae:.4f}")
+        # the same run again in this process (kernels loaded): the same seed
+        # must write the same file, Execution Time lines aside
+        out2 = os.path.join(tmp, "out2.txt")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rec_main.main(["-d", tweets, "-o", out2, "-c", conf, "-validate"])
+        warm = json.loads(buf.getvalue().strip().splitlines()[-1])["phase_ms"]
+        with open(out2) as f:
+            lines2 = f.read().splitlines()
+        if [x for x in lines2 if not x.startswith("Execution Time")] != \
+                [x for x in lines if x not in times]:
+            raise AssertionError("the same seed wrote another output file")
+        log(f"phase 13 rerun in the same process: the same file; phase ms {warm}")
+        # K2 at the shape the pipeline hashes: the real users' ratings
+        rows, _ = read_str_vectors(tweets, cfg.csv_delimiter, with_header_p=True)
+        users = build_user_matrix(score_tweets(
+            rows, read_lexicon(cfg.lexicon_file, cfg.csv_delimiter),
+            CoinTable.from_rows(coin_rows)))
+        x = torch.from_numpy(users.ratings).cuda()
+        proj = CosineLsh.create(gen(SEED + 50), x.shape[1], cfg.k, cfg.L, x.device).proj
+        k2 = check_k2(x, proj, cfg.k, cfg.L)
+        k2["geometry"] += " (the pipeline's cosine index, d = 15: two zero columns pad it)"
+        k2_line(13, k2)
+    return dict(launches=launches, seconds=t_run, dataset_s=t_gen, peak_bytes=peak,
+                summary=summary, warm_phase_ms=warm, csr_log=trunc, lines=len(recs), k2=k2)
+
+
+# phase 14: 10-fold CV at BENCH_CV.json's point (benchmarks/bench_cv.py):
+# 200,000 users x 128 coins, cosine k = 10, L = 6, fused engine (f32 slabs,
+# per-table window = budget 512, win 640), top-20; the JAX package read MAE
+# 1.4802 there (BENCH_CV.json)
+CV = dict(n=200000, c=128, k=10, L=6, budget=512, top_p=20)
+CV_JAX_MAE, CV_MAE_TOL = 1.4802, 0.03
+
+
+def cv_population(n, c):
+    """bench_cv.py's population (rng 13, 64 taste profiles, 30% known) ->
+    (full ratings, imputed ratings, known, mean), numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    profiles = rng.gamma(2.0, 1.0, (64, c)).astype(np.float32)
+    assign = rng.integers(0, 64, n)
+    full = profiles[assign] + 0.15 * rng.standard_normal((n, c)).astype(np.float32)
+    full = np.abs(full).astype(np.float32)
+    known = rng.random((n, c)) < 0.3
+    known[np.arange(n), rng.integers(0, c, n)] = True
+    mean = ((full * known).sum(1) / np.maximum(known.sum(1), 1)).astype(np.float32)
+    return full, np.where(known, full, mean[:, None]).astype(np.float32), known, mean
+
+
+def mean_predictor_mae(full, known, c):
+    """bench_cv.py:73-80: the hide-one protocol predicting only the
+    re-imputed mean, on the first 20,000 users (rng 99)."""
+    import numpy as np
+
+    rng_b = np.random.default_rng(99)
+    zeroed = np.where(known, full, 0.0)
+    hide_j = np.array([rng_b.choice(np.flatnonzero(k)) for k in known[:20000]])
+    rows = np.arange(len(hide_j))
+    rest = zeroed[:20000].sum(1) - zeroed[rows, hide_j]
+    return float(np.mean(np.abs(full[rows, hide_j] - rest / max(c - 1, 1))))
+
+
+def phase14():
+    """K1 on f32 slabs (d = 128) against its plain version on every window
+    of one fold and timed; K2 at the fold's build; then one counted
+    ten_fold_mae(engine="fused"): K1 and K2 must run, and the MAE must lie
+    within CV_MAE_TOL of the JAX package's."""
+    from crypto_rec_tpu_torch.models.lsh.index import build_index, pack_index, query_hashes
+    from crypto_rec_tpu_torch.models.rec import validate
+    from crypto_rec_tpu_torch.models.rec.engine import RatingSet
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+
+    n, c, k, L, budget = CV["n"], CV["c"], CV["k"], CV["L"], CV["budget"]
+    t0 = time.perf_counter()
+    full, ratings, known, mean = cv_population(n, c)
+    users = RatingSet(torch.from_numpy(ratings).cuda(), torch.from_numpy(known).cuda(),
+                      torch.from_numpy(mean).cuda())
+    log(f"phase 14 population {n} x {c} (bench_cv.py's recipe): "
+        f"{time.perf_counter() - t0:.1f} s")
+    # fold 0 as ten_fold_mae builds it, from the same draws
+    draws = validate.draw_folds(gen(SEED + 17), users, "cosine", k, L, 1.0)
+    folds = draws.folds.cuda()
+    test = RatingSet(*(t[folds[0]] for t in (users.ratings, users.known, users.mean)))
+    train_rows = folds[1:].reshape(-1)
+    train = RatingSet(*(t[train_rows] for t in (users.ratings, users.known, users.mean)))
+    hidden, _, _ = validate.hide_one_score(None, test.ratings, test.known, c,
+                                           hide_idx=draws.hide_idx[0])
+    k2 = check_k2(train.ratings, draws.families[0].proj, k, L)
+    k2["geometry"] += " (a CV fold's index)"
+    k2_line(14, k2)
+    pidx = pack_index(build_index(None, train.ratings, "cosine", k, L,
+                                  family=draws.families[0]),
+                      train.ratings, dtype=torch.float32)
+    qb, _ = query_hashes(pidx, hidden.ratings)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, budget)
+    qv = unit(hidden.ratings)
+    label = f"CV fold 0, f32 slabs d = {c}, q = {qv.shape[0]}"
+    err = k1_check(label, pidx.packed, s0, sizes, qv, budget, False)
+    k1 = k1_time(label, pidx.packed, s0, sizes, qv, budget, False)
+    k1["max_abs_err"] = err
+    k1_line(14, k1, err)
+    del pidx, s0, sizes, qv, hidden, train, test
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    mae = validate.ten_fold_mae(gen(SEED + 17), users, "cosine", k, L, 4, 1.0, CV["top_p"],
+                                engine="fused", candidate_budget=budget)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    base = mean_predictor_mae(full, known, c)
+    log(f"phase 14 ten_fold_mae fused ({n} x {c}, k={k} L={L} budget {budget}, top-"
+        f"{CV['top_p']}): {wall:.2f} s wall; MAE {mae:.4f} (JAX package {CV_JAX_MAE}, "
+        f"tolerance {CV_MAE_TOL}); mean predictor {base:.4f}; launches {launches}")
+    if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
+        raise AssertionError(f"10-fold CV: a kernel did not run: {launches}")
+    if abs(mae - CV_JAX_MAE) > CV_MAE_TOL:
+        raise AssertionError(f"10-fold CV MAE {mae:.4f} is not within {CV_MAE_TOL} "
+                             f"of {CV_JAX_MAE}")
+    return dict(launches=launches, wall_s=wall, mae=mae, jax_mae=CV_JAX_MAE,
+                mean_predictor_mae=base, k1=k1, k2=k2)
+
+
+# phase 15: score-ranked candidate sets at bench.py's point (budget 256,
+# window 488) on the CF leg's 2M x 128 int8 index; the JAX package read
+# set recall 0.9997 there
+SQ, SBUDGET, SFLOOR = 8192, 256, 0.999
+
+
+def phase15(pidx, queries, true_idx):
+    """candidate_ids_scored, counted (K1 must run), against the planted
+    top-10: set recall >= SFLOOR; ids in range and distinct per query.
+    K1 at this geometry (the same index, windows and queries) is held
+    against its plain version in phase 4."""
+    from crypto_rec_tpu_torch.models.lsh.index import candidate_ids_scored
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    qs = queries[:SQ]
+
+    def run():
+        return candidate_ids_scored(pidx, qs, budget=SBUDGET, per_table=PER_TABLE)
+
+    zero_counts()
+    ids = run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if not launches["slab_window_dots"]:
+        raise AssertionError("candidate_ids_scored: K1 did not run")
+    if tuple(ids.shape) != (SQ, SBUDGET) or not bool(((ids >= -1) & (ids < N)).all()):
+        raise AssertionError("candidate_ids_scored: shape or ids out of range")
+    s = torch.sort(ids, dim=1).values
+    if bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any()):
+        raise AssertionError("candidate_ids_scored: duplicate ids in a set")
+    recall = recall_at_k(ids, true_idx[:SQ])
+    t_wall = wall_ms(run)
+    t_dev = cuda_ms(run)
+    log(f"phase 15 candidate_ids_scored (2M x 128 int8, k={K} L={L}, window {PER_TABLE}, "
+        f"budget {SBUDGET}, q={SQ}): {t_wall:.3f} ms host, {t_dev:.3f} ms device, "
+        f"{SQ / t_wall * 1e3:,.0f} q/s; set recall@{TOP_K} {recall:.4f} (floor {SFLOOR}); "
+        f"launches {launches}")
+    if recall < SFLOOR:
+        raise AssertionError(f"set recall {recall:.4f} < {SFLOOR}")
+    return dict(launches=launches, wall_ms=t_wall, device_ms=t_dev, recall=recall,
+                floor=SFLOOR)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1072,7 +1355,7 @@ def main() -> int:
 
 
     # ---- 8-11. euclidean LSH, cubes and MultiCubes on the same corpus ----
-    del index, pidx, nset, n_known, qset, qset0, sims, nidx
+    del index, nset, n_known, qset, qset0, sims, nidx     # pidx: phase 15
     torch.cuda.empty_cache()
     geoms, k2_l1 = phase8(corpus, queries_all)
     k1_geoms += geoms
@@ -1085,6 +1368,13 @@ def main() -> int:
     del eidx
     torch.cuda.empty_cache()
     probe_checks, probes, probe_launches = phase12(corpus, queries_all, true_all, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. the recommender program, 10-fold CV, scored candidate sets ----
+    program = phase13()
+    cv = phase14()
+    scored = phase15(pidx, queries_all, true_all)
+    del pidx
 
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
@@ -1096,15 +1386,25 @@ def main() -> int:
              source="crypto_rec_tpu_torch/csrc/signproj.cu",
              replaces="crypto_rec_tpu/ops/pallas/signproj.py:61",
              launches=launches["signproj_bucket_ids"], max_abs_err=k2["max_abs_err"],
-             **{key: k2[key] for key in row_keys}, card=CARD, geometries=[k2, k2_l1],
-             path_launches=path_launches("signproj_bucket_ids")),
+             **{key: k2[key] for key in row_keys}, card=CARD,
+             geometries=[k2, k2_l1, program["k2"], cv["k2"]],
+             path_launches=dict(path_launches("signproj_bucket_ids"),
+                                program=program["launches"]["signproj_bucket_ids"],
+                                cv=cv["launches"]["signproj_bucket_ids"])),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
              launches=launches["slab_window_dots"], max_abs_err=k1_err,
              **{key: k1_main[key] for key in row_keys}, card=CARD,
              geometries=[k1_main] + k1_geoms,
-             path_launches=path_launches("slab_window_dots")),
+             path_launches=dict(path_launches("slab_window_dots"),
+                                scored_sets=scored["launches"]["slab_window_dots"])),
+        dict(name="slab_window_dots", route="cuda",
+             source="crypto_rec_tpu_torch/csrc/slabtile.cu",
+             replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
+             launches=cv["launches"]["slab_window_dots"], max_abs_err=cv["k1"]["max_abs_err"],
+             **{key: cv["k1"][key] for key in row_keys}, card=CARD, geometries=[cv["k1"]],
+             note="f32 slabs, d = 128 (f32 FFMA): the 10-fold CV leg, phase 14"),
     ]
 
     def probe_row(name, source, replaces, rows, **extra):
@@ -1134,8 +1434,12 @@ def main() -> int:
         probe_row("slab_window_dots_int4", "int4slab.cu",
                   "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]]),
     ]
+    for r in (cv, program):
+        r.pop("k1", None)
+        r.pop("k2")
     print(json.dumps({"kernels": kernels, "e2e": e2e, "paths": paths,
-                      "serving_euclidean": serving, "probes": probes, "card": smi}))
+                      "serving_euclidean": serving, "probes": probes, "program": program,
+                      "cv": cv, "scored_sets": scored, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,10 +4,14 @@ The reference stores each table as pointer buckets and unions a query's
 buckets across L tables through a std::set (reference
 lib/data_structures/cust_hashtable.hpp, lsh_cube.hpp:77-106).  Here, as in
 the JAX package, each table is a CSR layout: rows sorted by bucket id plus
-an offset table.  Two query paths:
+an offset table.  Three query paths:
 
 1. **Dense mask** (`candidate_mask`): exact reference semantics, [q, n].
-2. **Fused packed retrieval** (`retrieve_topk`, `retrieve_topk_pallas`):
+2. **CSR fixed budget** (`candidate_ids`, `gather_candidate_ids`): a
+   window of each query bucket per table, deduplicated and ranked by
+   collision count, truncated to a budget — O(q * budget) memory; and its
+   score-ranked form off K1 (`candidate_ids_scored`).
+3. **Fused packed retrieval** (`retrieve_topk`, `retrieve_topk_pallas`):
    per-table CSR-ordered corpus copies (`pack_index`), one window per
    table scored by kernel K1, dedup top-k epilogue.  Cosine slabs hold
    normalized rows; euclidean slabs the AUGMENTED rows [x, -|x|^2/2, 0-pad],
@@ -32,7 +36,8 @@ import torch
 from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
 from crypto_rec_tpu_torch.models.lsh.pstable import PStableLsh
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    packed_retrieve_pallas, packed_retrieve_pallas_euclid,
+    _window_offsets, augment_queries, euclid_window_offsets, lane_rows,
+    packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_window_dots,
 )
 
 _ROW_INT8 = "per-row int8 slabs are not ported yet (ROADMAP Queue 1 item 4)"
@@ -408,6 +413,204 @@ def candidate_mask(
     if filtered and index.detailed is not None:
         same = same & (q_detailed[:, None, :] == index.detailed.T[None, :, :])
     return torch.any(same, dim=-1)
+
+
+def mask_from_candidate_ids(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[q, budget] id lists -> dense [q, n] bool mask (-1 entries ignored)."""
+    mask = torch.zeros(ids.shape[0], n_rows, dtype=torch.bool, device=ids.device)
+    rows = torch.arange(ids.shape[0], device=ids.device)[:, None].expand(ids.shape)
+    real = ids >= 0
+    mask[rows[real], ids[real].long()] = True
+    return mask
+
+
+def _dedup_rank_fixed(
+    ids: torch.Tensor, sentinel: int, budget: int, n_tables: int,
+    with_count: bool = False,
+):
+    """Per row of [q, m] ids: dedup, rank by multi-table collision count,
+    truncate to budget, pad -1.
+
+    When the union across tables exceeds the budget, the rows that collided
+    with the query in the MOST tables come first (collision multiplicity is
+    a monotone proxy for similarity), ties by ascending row id.  Each id's
+    count is its run length in the sorted row, from a running max of run
+    starts and a reversed running min of run ends.  For m < 2^16 one int32
+    key ((n_tables - count) << 16 | position) carries the whole order, its
+    low bits the position to gather; wider rows sort an f32 key
+    (n_tables - count) + id / (sentinel + 1), as the JAX function does,
+    with a stable sort.  -> [q, min(m, budget)] int32 (and the per-row
+    count of distinct ids with with_count)."""
+    q, m = ids.shape
+    dev = ids.device
+    s, _ = torch.sort(ids.long(), dim=1)
+    iota = torch.arange(m, device=dev).expand(q, m)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:, :-1] = s[:, :-1] != s[:, 1:]
+    run_start = torch.cummax(torch.where(first, iota, 0), dim=1).values
+    run_end = torch.flip(torch.cummin(torch.flip(torch.where(last, iota, m - 1), [1]),
+                                      dim=1).values, [1])
+    cnt = run_end - run_start + 1
+    valid_first = first & (s != sentinel)
+    if m < (1 << 16):
+        big = 1 << 30
+        key = torch.where(valid_first, ((n_tables - cnt) << 16) | iota, big)
+        ksel = torch.sort(key, dim=1).values[:, :budget]
+        out = torch.where(ksel < big, torch.gather(s, 1, ksel & 0xFFFF), -1)
+    else:
+        keyf = torch.where(
+            valid_first,
+            (n_tables - cnt).float()
+            + s.float() / torch.tensor(sentinel + 1, dtype=torch.float32, device=dev),
+            float("inf"),
+        )
+        kval, order = torch.sort(keyf, dim=1, stable=True)
+        out = torch.where(torch.isfinite(kval[:, :budget]),
+                          torch.gather(s, 1, order[:, :budget]), -1)
+    out = out.to(torch.int32)
+    if with_count:
+        return out, valid_first.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def gather_candidate_ids(
+    sorted_rows: torch.Tensor,        # [L, n] CSR member arrays
+    bucket_starts: torch.Tensor,      # [L, nb + 1]
+    detailed: Optional[torch.Tensor],   # [L, n] fingerprints or None (no filter)
+    n_rows: int,
+    q_buckets: torch.Tensor,          # [q, L]
+    q_detailed: Optional[torch.Tensor],  # [q, L] fingerprints or None
+    budget: int,
+    per_table: int = 0,
+    with_stats: bool = False,
+):
+    """Raw-array core of candidate_ids, as batched tensor ops over [q, L,
+    per_table] windows: per query and table a window of up to `per_table`
+    CSR positions — at the query's exact-tuple run when `detailed` is
+    given, else at the pseudo-random offset of `_window_offsets` (buckets
+    larger than the window are sampled at an offset drawn from (bucket,
+    table), which keeps the L tables' coverage independent) — then the
+    count-ranked dedup of the [q, L * per_table] union, truncated to budget.
+
+    with_stats=True also returns a truncation-accounting dict of per-query
+    int32 vectors:
+      unique_candidates  — distinct rows gathered before the budget cut;
+      budget_dropped     — distinct rows the budget discarded;
+      window_dropped     — bucket members beyond the per-table window (an
+                           upper bound for the filtered path, whose windows
+                           start at the exact-tuple run)."""
+    L = sorted_rows.shape[0]
+    per_table = per_table or budget
+    dev = q_buckets.device
+    l_idx = torch.arange(L, device=dev)[None, :]
+    qb = q_buckets.long()
+    start = bucket_starts[l_idx, qb].long()                          # [q, L]
+    end = bucket_starts[l_idx, qb + 1].long()
+    if detailed is not None:
+        base = _fp_run_starts(lambda p: detailed[l_idx, sorted_rows[l_idx, p].long()],
+                              start, end, q_detailed, n_rows).long()
+    else:
+        base = _window_offsets(bucket_starts, q_buckets, per_table)[0].long()
+    offs = base[:, :, None] + torch.arange(per_table, device=dev)     # [q, L, P]
+    valid = offs < end[:, :, None]
+    rows = sorted_rows[l_idx[:, :, None], torch.clamp(offs, max=n_rows - 1)]
+    if detailed is not None:
+        valid &= detailed[l_idx[:, :, None], rows.long()] == q_detailed[:, :, None]
+    gathered = torch.where(valid, rows, n_rows).reshape(q_buckets.shape[0], -1)
+    if not with_stats:
+        return _dedup_rank_fixed(gathered, n_rows, budget, L)
+    ids, n_unique = _dedup_rank_fixed(gathered, n_rows, budget, L, with_count=True)
+    stats = {
+        "unique_candidates": n_unique,
+        "budget_dropped": torch.clamp(n_unique - budget, min=0),
+        "window_dropped": torch.clamp(end - start - per_table, min=0).sum(
+            dim=1, dtype=torch.int32),
+    }
+    return ids, stats
+
+
+def candidate_ids(
+    index: LshIndex,
+    queries: torch.Tensor,
+    budget: int,
+    filtered: bool = True,
+    per_table: int = 0,
+    with_stats: bool = False,
+):
+    """CSR fixed-budget retrieval: [q, d] -> [q, budget] row ids (-1 pad),
+    count-ranked (`gather_candidate_ids`).  per_table defaults to `budget`:
+    any single table's bucket may supply the whole candidate set, as the
+    reference unions whole buckets (lsh_cube.hpp:77-106); a smaller
+    per_table trades recall for gather width."""
+    q_buckets, q_detailed = query_hashes(index, queries)
+    return gather_candidate_ids(
+        index.sorted_rows, index.bucket_starts,
+        index.detailed if filtered else None,
+        index.n_rows, q_buckets, q_detailed, budget, per_table,
+        with_stats=with_stats,
+    )
+
+
+def candidate_ids_scored(
+    index: LshIndex,
+    queries: torch.Tensor,
+    budget: int,
+    per_table: int = 256,
+) -> torch.Tensor:
+    """Score-ranked candidate sets off K1: [q, d] -> [q, budget] unique row
+    ids (-1 pad), ranked by cosine similarity (or the augmented euclidean
+    rank x.q - |x|^2/2).
+
+    K1 dots every lane of one maskless window per table; stage 1 keeps the
+    ceil(budget / L) best lanes of each window with an exact `torch.topk`
+    (the TPU ran `approx_max_k`, so the port's survivors are a superset);
+    the survivors are sorted by id (a stable sort, scores gathered by its
+    permutation), duplicates and pad rows dropped, and the best `budget`
+    kept.  >= kk distinct better rows in one window imply >= kk globally
+    better rows, so the set holds the global score-top-ceil(budget / L).
+
+    Needs a packed index with scale-free slabs: cosine (f32, bf16 or
+    global-scale int8), or euclidean with the augmented layout (windows at
+    the query's fingerprint run)."""
+    if index.packed is None:
+        raise ValueError("candidate_ids_scored requires a packed index")
+    euclid_aug = index.metric == "euclidean" and index.packed_aug_scale is not None
+    if not (index.metric == "cosine" or euclid_aug):
+        raise ValueError(
+            "candidate_ids_scored rides the slab kernel: cosine scale-free slabs "
+            "or augmented euclidean slabs only (use candidate_ids for the general path)"
+        )
+    L = index.sorted_rows.shape[0]
+    n = index.n_rows
+    q = queries.shape[0]
+    q_buckets, q_detailed = query_hashes(index, queries)
+    if euclid_aug:
+        s0, sizes = euclid_window_offsets(index.bucket_starts, index.packed_detailed,
+                                          q_buckets, q_detailed, per_table)
+        qv = augment_queries(queries, index.packed_aug_scale, index.packed.shape[-1])
+    else:
+        s0, sizes = _window_offsets(index.bucket_starts, q_buckets, per_table)
+        qv = queries.float()
+        qv = qv / torch.clamp(_row_norms(qv), min=1e-30)
+    dots, a0 = slab_window_dots(index.packed, s0, sizes, qv, per_table, mask=False)
+    win = dots.shape[2]
+    kk = min(-(-budget // L), win)
+    s1, lane = torch.topk(dots.reshape(q * L, win), kk, dim=1)
+    s1 = s1.reshape(q, L * kk)
+    l_base = torch.arange(L, device=dots.device)[None, :, None] * win
+    ids1 = lane_rows((l_base + lane.reshape(q, L, kk)).reshape(q, L * kk), a0,
+                     index.packed_rows, win)
+    ids1 = torch.where(s1 > float("-inf"), ids1, n)
+    ids_s, perm = torch.sort(ids1, dim=1, stable=True)
+    sc_s = torch.gather(s1, 1, perm)
+    dup = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
+    sc_s = torch.where(dup | (ids_s >= n), float("-inf"), sc_s)
+    s2, pos2 = torch.topk(sc_s, min(budget, L * kk), dim=1)
+    out = torch.where(s2 > float("-inf"), torch.gather(ids_s, 1, pos2), -1).to(torch.int32)
+    return torch.nn.functional.pad(out, (0, budget - out.shape[1]), value=-1)
 
 
 def rerank_exact(

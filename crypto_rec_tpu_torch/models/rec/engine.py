@@ -10,7 +10,9 @@ Reference math (reference lib/crypto_rec.hpp:213-345):
 
 For a [q] batch of users: one similarity product, one masked top-k, one
 gather and one weighted contraction.  A zero |sim| sum predicts the user
-mean instead of the reference's NaN.
+mean instead of the reference's NaN.  `recommend` runs in query blocks
+that bound the [b, P, c] neighbour gather (the clustering phases ask for
+P = every member).
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from crypto_rec_tpu_torch.ops.distances import cosine_similarity_matrix
 from crypto_rec_tpu_torch.ops.topk import masked_topk_desc, topn_indices
 
 _EPS = 1e-30
+# recommend's query block: the [b, P, c] f32 neighbour gather stays near
+# 2^28 elements (1 GiB)
+_GATHER_ELEMS = 1 << 28
 
 
 @dataclasses.dataclass
@@ -32,6 +37,15 @@ class RatingSet:
     ratings: torch.Tensor  # [n, c] float32
     known: torch.Tensor    # [n, c] bool
     mean: torch.Tensor     # [n] float32
+
+    @classmethod
+    def from_user_matrix(cls, um, device) -> "RatingSet":
+        """A host UserMatrix (io/users.py) on `device`."""
+        return cls(
+            ratings=torch.as_tensor(um.ratings, dtype=torch.float32).to(device),
+            known=torch.as_tensor(um.known).to(device),
+            mean=torch.as_tensor(um.mean, dtype=torch.float32).to(device),
+        )
 
 
 @dataclasses.dataclass
@@ -76,7 +90,25 @@ def recommend(
     top_n: int,
 ) -> Recommendation:
     """Similarity product -> masked top-P -> weighted mean-centred
-    prediction -> top-N unknown coins."""
+    prediction -> top-N unknown coins, in query blocks of at most
+    _GATHER_ELEMS / (P c) rows (each block's result is the same as the
+    whole batch's)."""
+    q = queries.ratings.shape[0]
+    step = max(1, _GATHER_ELEMS // max(1, top_p * queries.ratings.shape[1]))
+    if q <= step:
+        return _recommend_block(queries, neighbors, candidates, top_p, top_n)
+    parts = [
+        _recommend_block(
+            RatingSet(queries.ratings[s:s + step], queries.known[s:s + step],
+                      queries.mean[s:s + step]),
+            neighbors, candidates[s:s + step], top_p, top_n)
+        for s in range(0, q, step)
+    ]
+    return Recommendation(*(torch.cat([getattr(p, f.name) for p in parts])
+                            for f in dataclasses.fields(Recommendation)))
+
+
+def _recommend_block(queries, neighbors, candidates, top_p, top_n) -> Recommendation:
     sims = cosine_similarity_matrix(queries.ratings, neighbors.ratings)
     vals, idx, valid = masked_topk_desc(sims, candidates, top_p)
     safe_idx = torch.clamp(idx, min=0) * valid   # idx rows of invalid slots -> 0
@@ -110,5 +142,35 @@ def recommend_topk_retrieved(
         has_neighbors=torch.any(valid, dim=1),
         sims=torch.where(valid, sims, float("-inf")),
         neighbor_idx=neighbor_idx,
+        neighbor_valid=valid,
+    )
+
+
+def recommend_from_ids(
+    queries: RatingSet,
+    neighbors: RatingSet,
+    candidate_ids: torch.Tensor,  # [q, B] row ids, -1 padded (CSR budget path)
+    top_p: int,
+    top_n: int,
+) -> Recommendation:
+    """The same engine over fixed-budget candidate id lists: similarities
+    only against the B gathered rows per query (O(q B c) instead of
+    O(q n c))."""
+    valid_c = candidate_ids >= 0
+    safe = torch.clamp(candidate_ids, min=0).long()
+    cand_r = neighbors.ratings[safe]                                # [q, B, c]
+    dots = torch.einsum("qc,qbc->qb", queries.ratings, cand_r)
+    qn = torch.linalg.vector_norm(queries.ratings, dim=1, keepdim=True)
+    cn = torch.linalg.vector_norm(cand_r, dim=2)
+    sims = dots / torch.clamp(qn * cn, min=_EPS)
+    vals, slot, valid = masked_topk_desc(sims, valid_c, top_p)
+    idx = torch.gather(safe, 1, slot)
+    predicted = predict_scores(queries, neighbors, vals, idx * valid, valid)
+    return Recommendation(
+        predicted=predicted,
+        top_n=topn_indices(predicted, ~queries.known, top_n),
+        has_neighbors=torch.any(valid, dim=1),
+        sims=vals,
+        neighbor_idx=torch.where(valid, idx, -1),
         neighbor_valid=valid,
     )

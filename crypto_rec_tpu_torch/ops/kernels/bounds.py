@@ -8,9 +8,10 @@ the call's windows, counted on the device in 32-row blocks from the windows'
 first rows: a row that many windows share counts once.
 
 Peaks (NVIDIA's data sheet, dense, at the full 700 W): bf16 tensor cores
-989 TFLOP/s (K1 and the probe kernels P1-P6), f32 FFMA 67 TFLOP/s (K2, whose
-hash parity rules out TF32; K1's row also shows it as the floor of a design
-without tensor cores).
+989 TFLOP/s (K1 on int8 and bf16 slabs, and the probe kernels P1-P6), f32
+FFMA 67 TFLOP/s (K2, whose hash parity rules out TF32; K1 on f32 slabs,
+which are not exact in bf16 and take FFMA; K1's other rows show it as the
+floor of a design without tensor cores).
 """
 
 from __future__ import annotations
@@ -70,8 +71,9 @@ def window_call(row0: torch.Tensor, win: int, n_rows: int, row_bytes: float,
 def k1_call(packed: torch.Tensor, starts, sizes, queries, per_table: int,
             shared_slab: bool = False) -> dict:
     """K1's bound for one `slab_window_dots` call (dots [q, T, win] f32 and
-    aligned starts [q, T] int32 written), on bf16 tensor cores, with the
-    f32 FFMA floor beside it as `ffma_bound_ms`."""
+    aligned starts [q, T] int32 written): on bf16 tensor cores for int8 and
+    bf16 slabs, on f32 FFMA for f32 slabs; the f32 FFMA bound also stands
+    beside it as `ffma_bound_ms`."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry
 
     win, aligned, row0, _, _ = _geometry(packed, starts, sizes, per_table, shared_slab)
@@ -82,7 +84,7 @@ def k1_call(packed: torch.Tensor, starts, sizes, queries, per_table: int,
     nbytes = (covered_rows(row0, win, n_rows) * d * packed.element_size()
               + tensor_bytes(queries.float()) + out_bytes)
     flops = 2.0 * q * T * win * d
-    res = bound(nbytes, flops, BF16_TC)
+    res = bound(nbytes, flops, F32_FFMA if packed.dtype == torch.float32 else BF16_TC)
     res["ffma_bound_ms"] = bound(nbytes, flops, F32_FFMA)["bound_ms"]
     return res
 

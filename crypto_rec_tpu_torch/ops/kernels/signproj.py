@@ -89,9 +89,13 @@ def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
         raise TypeError("the signproj kernel takes float32 x and proj")
     if proj.device != x.device:
         raise ValueError("x and proj must live on the same CUDA device")
+    if x.shape[1] % 4:
+        # the kernel reads rows as float4: zero columns in x and zero rows
+        # in proj add exact zeros to every projection
+        pad = -x.shape[1] % 4
+        x = torch.nn.functional.pad(x, (0, pad))
+        proj = torch.nn.functional.pad(proj, (0, 0, 0, pad))
     n, d = x.shape
-    if d % 4:
-        raise ValueError(f"the signproj kernel needs d % 4 == 0, got d={d}")
     if L > _MAX_L:
         raise ValueError(f"the signproj kernel takes at most {_MAX_L} tables, got L={L}")
     x = x.contiguous()

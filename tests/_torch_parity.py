@@ -178,3 +178,19 @@ def assert_topk_match(s_ref, i_ref, s_got, i_got, rtol=1e-5, atol=1e-5):
         sure_got = set(i_got[q][s_got[q] > b + 2 * tol].tolist())
         assert sure_ref <= set(i_got[q].tolist()), f"query {q}: ids differ"
         assert sure_got <= set(i_ref[q].tolist()), f"query {q}: ids differ"
+
+
+def assert_recs_match(want, got, rtol=1e-5, atol=1e-5):
+    """Two Recommendations (JAX, port) agree: predicted within rtol/atol,
+    has_neighbors equal, top_n equal except where predictions tie within
+    1e-6."""
+    wp, gp = np.asarray(want.predicted), to_np(got.predicted)
+    np.testing.assert_allclose(gp, wp, rtol=rtol, atol=atol)
+    wt, gt = np.asarray(want.top_n), to_np(got.top_n)
+    np.testing.assert_array_equal(to_np(got.has_neighbors), np.asarray(want.has_neighbors))
+    for q in np.nonzero((wt != gt).any(1))[0]:
+        a, b = wt[q][wt[q] != gt[q]], gt[q][wt[q] != gt[q]]
+        assert (a >= 0).all() and (b >= 0).all(), f"user {q}: top-n pads differ"
+        assert np.abs(np.sort(wp[q, a]) - np.sort(wp[q, b])).max() <= 1e-6, (
+            f"user {q}: top-n differs beyond a prediction tie"
+        )

@@ -29,7 +29,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("n,d,k,L", [(300, 32, 5, 3), (77, 16, 4, 2),
-                                     (100_000, 128, 13, 8), (100_000, 128, 13, 1)])
+                                     (100_000, 128, 13, 8), (100_000, 128, 13, 1),
+                                     (20_000, 15, 4, 5)])
 def test_signproj_kernel_matches_plain(cuda, n, d, k, L):
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn(n, d, generator=g, device=cuda)

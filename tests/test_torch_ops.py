@@ -56,3 +56,19 @@ def test_exact_nearest_and_recall_match_jax(metric):
     got_ids = np.where(RNG.random((37, 10)) < 0.2, -1, np.asarray(wi))
     assert oracle.recall_at_k(torch.from_numpy(got_ids), gi) == pytest.approx(
         float(jax_oracle.recall_at_k(jnp.asarray(got_ids), wi)))
+
+
+def test_masked_topk_takes_k_above_the_axis_length():
+    """The reference keeps every candidate when there are fewer than P
+    (crypto_rec.hpp:225-228): slots past the axis are invalid pads, and
+    the first slots are the plain top-k."""
+    from crypto_rec_tpu_torch.ops.topk import masked_topk_desc, topn_indices
+
+    v = torch.tensor([[0.5, 0.9, 0.1], [0.3, 0.2, 0.8]])
+    m = torch.tensor([[True, True, False], [True, True, True]])
+    vals, idx, valid = masked_topk_desc(v, m, 5)
+    assert vals.shape == idx.shape == valid.shape == (2, 5)
+    assert valid.sum(1).tolist() == [2, 3]
+    assert idx[0, :2].tolist() == [1, 0] and idx[1, :3].tolist() == [2, 0, 1]
+    assert torch.isinf(vals[:, 3:]).all() and (idx[:, 3:] == 0).all()
+    assert topn_indices(v, m, 4).tolist() == [[1, 0, -1, -1], [2, 0, 1, -1]]

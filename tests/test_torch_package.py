@@ -14,15 +14,17 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule, the probe entry points
-    (`experiments`) included, loads no jax* or ml_dtypes module (run in a
-    fresh interpreter: the test harness imports jax)."""
+    (`experiments`) and the recommender program (`main`) included, loads no
+    jax* or ml_dtypes module and nothing of the JAX package crypto_rec_tpu
+    (run in a fresh interpreter: the test harness imports jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import crypto_rec_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0].startswith('jax') or k.startswith('ml_dtypes'))\n"
+        "             if k.split('.')[0] in ('crypto_rec_tpu', 'ml_dtypes')\n"
+        "             or k.split('.')[0].startswith('jax'))\n"
         "print(','.join(sorted(k for k in sys.modules if k.startswith(p.__name__))), bad)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -30,7 +32,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     mods, bad = res.stdout.split(" ", 1)
     mods = set(mods.split(","))
-    assert len(mods) >= 18
+    assert len(mods) >= 30
     assert {"crypto_rec_tpu_torch.models.lsh.pstable",
             "crypto_rec_tpu_torch.models.lsh.hypercube",
             "crypto_rec_tpu_torch.ops.hamming"} <= mods
@@ -40,6 +42,12 @@ def test_port_imports_no_jax():
         "probe_r3_final", "probe_r4_blk", "probe_r5_int4")} <= mods
     assert {f"crypto_rec_tpu_torch.ops.kernels.{m}" for m in (
         "binned", "int4slab", "slabvariants", "blkslab")} <= mods
+    # the recommender program and its modules
+    assert {f"crypto_rec_tpu_torch.{m}" for m in (
+        "main", "utils.timing", "utils.logging", "io.readers", "io.ingest", "io.users",
+        "io.synth", "models.rec.validate", "models.rec.pipeline", "models.cluster.init",
+        "models.cluster.assign", "models.cluster.update", "models.cluster.silhouette",
+        "models.cluster.kmeans")} <= mods
     assert bad.strip() == "[]", bad
 
 

@@ -244,3 +244,15 @@ def test_k1_and_k2_bounds_hand_reckoned():
     assert k2["bound_by"] == "operations"
     assert k2["bound_ms"] == pytest.approx(k2["flops"] / 67e12 * 1e3)
     assert bounds.k2_call(2_000_000, 128, 13, 1)["bound_by"] == "bytes"
+
+
+def test_k1_bound_prices_f32_slabs_on_ffma():
+    """f32 slabs are not exact in bf16: K1 takes f32 FFMA for them, and its
+    bound uses that unit's peak (the same geometry as above, 4 B a value)."""
+    packed = torch.zeros(2, 1024, 128, dtype=torch.float32)
+    starts = torch.tensor([[0, 64], [0, 64]], dtype=torch.int32)
+    b = bounds.k1_call(packed, starts, None, torch.zeros(2, 128), 96)
+    assert b["peak"] == bounds.F32_FFMA
+    assert b["bytes"] == 256 * 128 * 4 + 2 * 128 * 4 + 2 * 2 * (128 * 4 + 4)
+    assert b["bound_ms"] == b["ffma_bound_ms"] == pytest.approx(
+        max(b["bytes"] / 3.35e12, b["flops"] / 67e12) * 1e3)

@@ -25,7 +25,7 @@ from crypto_rec_tpu_torch.models.lsh import index as port_index
 from crypto_rec_tpu_torch.models.rec import engine as port_engine
 from crypto_rec_tpu_torch.models.rec import pipeline as port_pipeline
 
-from _torch_parity import assert_topk_match, handover
+from _torch_parity import assert_recs_match, assert_topk_match, handover
 
 N, D, Q, K, L, PT, TOP_P, TOP_N = 4096, 128, 48, 5, 5, 200, 20, 5
 CPU = torch.device("cpu")
@@ -60,20 +60,6 @@ def _port_set(s):
     return port_engine.RatingSet(*(torch.from_numpy(np.asarray(a).copy()) for a in s))
 
 
-def _assert_recs_match(want, got):
-    wp, gp = np.asarray(want.predicted), got.predicted.numpy()
-    np.testing.assert_allclose(gp, wp, rtol=1e-5, atol=1e-5)
-    wt, gt = np.asarray(want.top_n), got.top_n.numpy()
-    np.testing.assert_array_equal(got.has_neighbors.numpy(), np.asarray(want.has_neighbors))
-    for q in np.nonzero((wt != gt).any(1))[0]:
-        # a differing slot must be a tie of predictions within 1e-6
-        a, b = wt[q][wt[q] != gt[q]], gt[q][wt[q] != gt[q]]
-        assert (a >= 0).all() and (b >= 0).all(), f"user {q}: top-n pads differ"
-        assert np.abs(np.sort(wp[q, a]) - np.sort(wp[q, b])).max() <= 1e-6, (
-            f"user {q}: top-n differs beyond a prediction tie"
-        )
-
-
 @pytest.mark.parametrize("int8_rerank", [True, False])
 def test_retrieve_topk_pallas_matches_jax(data, int8_rerank):
     jp, qs, corpus = data["jp"], data["qset"][0], data["nset"][0]
@@ -106,7 +92,7 @@ def test_recommend_topk_retrieved_matches_jax(data):
         _port_set(data["qset"]), _port_set(data["nset"]), torch.from_numpy(sims),
         torch.from_numpy(ids), TOP_N,
     )
-    _assert_recs_match(want, got)
+    assert_recs_match(want, got)
     np.testing.assert_array_equal(got.neighbor_valid.numpy(), ids >= 0)
 
 
@@ -123,7 +109,7 @@ def test_lsh_phase_mask_matches_jax(data):
         4, _port_set(data["qset"]), _port_set(data["nset"]), RecConfig(**cfg),
         top_n=TOP_N, top_p=TOP_P, index_cache=cache, index_token="users",
     )
-    _assert_recs_match(want, got)
+    assert_recs_match(want, got)
     assert_topk_match(want.sims, want.neighbor_idx, got.sims, got.neighbor_idx,
                       rtol=1e-5, atol=1e-6)
 
@@ -145,7 +131,7 @@ def test_lsh_phase_fused_matches_jax(data):
         top_n=TOP_N, top_p=TOP_P, index_cache=cache, index_token="users",
     )
     assert cache[(4, "users")].packed.dtype == torch.int8   # slabs reused
-    _assert_recs_match(want, got)
+    assert_recs_match(want, got)
     assert_topk_match(sims, nidx, got.sims, got.neighbor_idx, rtol=1e-5, atol=1e-5)
     assert got.has_neighbors.all()
 
@@ -167,8 +153,10 @@ def test_lsh_phase_builds_and_caches_its_own_index(data):
     assert a.predicted.shape == (Q, D) and bool(a.has_neighbors.all())
     with pytest.raises(ValueError):
         port_pipeline.lsh_phase(9, qset, nset, cfg, TOP_N, TOP_P, index_cache={})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        port_pipeline.lsh_phase(9, qset, nset, cfg.replace(engine="csr"), TOP_N, TOP_P)
+    # the csr engine reuses the cached index (its slabs go unused)
+    c = port_pipeline.lsh_phase(9, qset, nset, cfg.replace(engine="csr"), TOP_N, TOP_P,
+                                index_cache=cache, index_token="users")
+    assert c.top_n.shape == (Q, TOP_N) and cache[(9, "users")] is idx
 
 
 def test_serve_cli_answers_from_a_jax_checkpoint(data, tmp_path):
