@@ -6,8 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's serving paths at `bench.py`'s operating points on one
-2M x 128 planted corpus on the card, then the recommender program and its
-10-fold CV, in fifteen phases; each phase raises on failure:
+2M x 128 planted corpus on the card, the recommender program and its
+10-fold CV, then the rest of the single-chip package, in twenty-one
+phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -48,8 +49,9 @@ It drives the port's serving paths at `bench.py`'s operating points on one
      (with its truncation log) and K2 must run; the output file's four
      headers, four "Execution Time:" lines and coin names, the phase ms,
      the MAE and the peak device memory; a rerun in the same process must
-     write the same file; K2 against its plain version at the pipeline's
-     index shape (d = 15);
+     write the same file; the native ingest against one timed Python
+     score_tweets (equal batches); K2 against its plain version at the
+     pipeline's index shape (d = 15);
  14. 10-fold CV at BENCH_CV.json's point (200,000 users x 128 coins,
      bench_cv.py's population, cosine k = 10, L = 6, budget 512, fused):
      K1 on f32 slabs (d = 128, win 640) against its plain version on every
@@ -58,7 +60,35 @@ It drives the port's serving paths at `bench.py`'s operating points on one
      0.03 of the JAX package's 1.4802 (the mean predictor's MAE beside it);
  15. candidate_ids_scored on phase 5's 2M x 128 int8 index at q = 8,192,
      budget 256, counted: K1 must run, set recall@10 against the planted
-     truth >= 0.999.
+     truth >= 0.999;
+ 16. the program on the card against the program on the CPU: `main
+     -validate` with --engine mask, csr and fused on 4,000 users x 15
+     coins, once on the card and once with --device cpu; every differing
+     recommendation line must be an exact tie or a near-tie (1e-5) in the
+     neighbour sims or the predicted scores (counts printed);
+ 17. `main -validate --engine fused` on phase 13's dataset: phase A at
+     d = 15 through packed_retrieve_core, counted (K2 must run);
+ 18. the retrieval paths that run no kernel, on phase 5's corpus at
+     q = 8,192: `serve_cli retrieve` without --pack (recall@10 >= 0.99),
+     cosine per-row int8 (>= 0.99) and unaugmented euclidean per-row int8
+     at phase 9's point (>= 0.98) through packed_retrieve_core and the
+     rerank, a single cosine cube with 20 probes (the blocked branch,
+     >= 0.96), and pack_index_host's int8 slabs equal to pack_index's byte
+     for byte;
+ 19. the streamed index: bench_100m.py's planted recipe cut from 100M to
+     16M x 128 rows (4 chunks, k = 15, L = 4, window 256, q = 16,384,
+     pinned host chunks): K1 against its plain version on every window of
+     chunk 0; five passes alternating with five copies of every chunk's
+     bytes alone (the copy rate the pass is held against); then a counted
+     pass: K1 and K2 must run, recall@10 >= 0.95, device peak under three
+     chunks;
+ 20. IVF at bench_ivf.py's point (1,953 clusters, k-means on 262,144 rows
+     x 8 iterations, bf16 blocks), nprobe 2/4/8/16 at q = 8,192 with q/s
+     and recall@10; recall >= 0.99 at nprobe 16;
+ 21. the CLIs, counted: cluster_cli on phase 13's 400,000 x 16
+     embeddings (k = 6; lloyd, lsh and cube under kmeans; pam on the
+     first 20,000 rows) with silhouettes, K2 on lsh and cube; serve_cli
+     recommend on phase 13's users saved with save_user_matrix (K2).
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -74,19 +104,23 @@ Each kernel wrapper counts its launches.  The counts are zeroed just before
 each path's counted run (phase 5: build, pack, retrieve and CF-score 8,192
 users; phases 9 and 10: build, pack and retrieve; phases 6-7 and 11 as
 wholes; phase 12: the six probes; phase 13: the program's run; phase 14:
-ten_fold_mae; phase 15: one candidate_ids_scored call) and read just
+ten_fold_mae; phase 15: one candidate_ids_scored call; phases 17, 19
+and 21: the fused program, the streamed pass, each CLI run) and read just
 after it; each kernel of the path must show > 0.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, bound and share of it, every
-geometry and each path's launches; the last line is {"ok": true,
-"device": ...}.  Exits non-zero without a CUDA device.
+geometry and each path's launches, and the new paths' results; the
+last line is {"ok": true, "device": ...}.  The script's wall time is
+printed before them.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
+import itertools
 import json
 import logging
 import os
@@ -96,6 +130,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 N, D, K, L = 2_000_000, 128, 13, 8
@@ -132,6 +167,8 @@ def wall_ms(fn, reps=5):
 
 ROUNDS = 5                 # alternating timing rounds (3 at the large paths)
 CARD = ""                  # nvidia-smi's name and power limit, set in main
+T_START = 0.0              # the script's start (perf_counter), set in main
+DEV = torch.device("cuda")
 
 
 def rounds_ms(fns, rounds=ROUNDS):
@@ -878,15 +915,18 @@ class _Records(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def phase13():
+def phase13(tmp):
     """`python -m crypto_rec_tpu_torch.main -d tweets.tsv -o out.txt -c
     cluster.conf -validate` with the default engine and device, counted:
     K2 must run.  Checks the csr switch and its truncation log, the four
-    headers and "Execution Time:" lines, the coin names, the summary; then
-    K2 against its plain version at the pipeline's index shape."""
-    import numpy as np
+    headers and "Execution Time:" lines, the coin names, the summary; the
+    native ingest against one timed Python score_tweets on the same file
+    (equal batches); then K2 against its plain version at the pipeline's
+    index shape.  The dataset stays in `tmp` for phases
+    17 and 21."""
     from crypto_rec_tpu_torch import main as rec_main
     from crypto_rec_tpu_torch.io.ingest import CoinTable, score_tweets
+    from crypto_rec_tpu_torch.io.native import score_tweets_native
     from crypto_rec_tpu_torch.io.readers import read_lexicon, read_str_vectors
     from crypto_rec_tpu_torch.io.synth import write_synthetic_dataset
     from crypto_rec_tpu_torch.io.users import build_user_matrix
@@ -894,91 +934,106 @@ def phase13():
     from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
     from crypto_rec_tpu_torch.models.rec import pipeline
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        tweets, conf = write_synthetic_dataset(os.path.join(tmp, "ds"), **PIPE)
-        t_gen = time.perf_counter() - t0
-        out = os.path.join(tmp, "out.txt")
-        rec = _Records()
-        pipeline.log.addHandler(rec)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()     # the smoke run's own tensors
-        buf = io.StringIO()
-        zero_counts()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = rec_main.main(["-d", tweets, "-o", out, "-c", conf, "-validate"])
-            torch.cuda.synchronize()
-        finally:
-            pipeline.log.removeHandler(rec)
-        t_run = time.perf_counter() - t0
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() - held
-        if rc != 0:
-            raise AssertionError(f"main exited {rc}")
-        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
-        log(f"phase 13 main -validate ({PIPE['n_users']} users, {PIPE['n_tweets']} tweets, "
-            f"{PIPE['n_coins']} coins; dataset written in {t_gen:.1f} s): {t_run:.1f} s, "
-            f"peak device memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
-            f"held before; launches {launches}")
-        for line in rec.lines:
-            log(f"phase 13 log: {line}")
-        if not launches["signproj_bucket_ids"]:
-            raise AssertionError("the recommender program: K2 did not run")
-        if not any("switching to the csr engine" in m for m in rec.lines):
-            raise AssertionError("phase A did not take the csr engine")
-        trunc = [m for m in rec.lines if m.startswith("csr engine")]
-        if not trunc:
-            raise AssertionError("the csr engine logged no truncation stats")
-        with open(out) as f:
-            lines = f.read().splitlines()
-        cfg = load_config(conf)
-        coin_rows, _ = read_str_vectors(cfg.query_file, cfg.csv_delimiter)
-        names = {r[4] if len(r) > 4 else r[0] for r in coin_rows}
-        headers = [x for x in lines if x in ("Cosine LSH", "Clustering Recommendation")]
-        times = [x for x in lines if x.startswith("Execution Time: ")]
-        recs = [x.split(" ") for x in lines if x not in headers and x not in times]
-        if headers != ["Cosine LSH"] * 2 + ["Clustering Recommendation"] * 2:
-            raise AssertionError(f"headers {headers}")
-        if len(times) != 4:
-            raise AssertionError(f"{len(times)} Execution Time lines")
-        bad = [r for r in recs if not r[0].startswith("user") or not set(r[1:]) <= names]
-        if bad:
-            raise AssertionError(f"{len(bad)} lines name no known coin, e.g. {bad[0]}")
-        mae = summary["mae_10fold"]
-        want = {"phase0", "ingest", "lsh_A", "validate", "lsh_B", "cluster_A", "cluster_B"}
-        if set(summary["phase_ms"]) != want or not np.isfinite(mae) or mae <= 0:
-            raise AssertionError(f"summary {summary}")
-        log(f"phase 13 output: {len(recs)} recommendation lines, headers {headers}, "
-            f"{times}; {summary['n_users']} users, {summary['n_fake_users']} virtual "
-            f"users; phase ms {summary['phase_ms']}; 10-fold CV MAE {mae:.4f}")
-        # the same run again in this process (kernels loaded): the same seed
-        # must write the same file, Execution Time lines aside
-        out2 = os.path.join(tmp, "out2.txt")
-        buf = io.StringIO()
+    t0 = time.perf_counter()
+    tweets, conf = write_synthetic_dataset(os.path.join(tmp, "ds"), **PIPE)
+    t_gen = time.perf_counter() - t0
+    out = os.path.join(tmp, "out.txt")
+    rec = _Records()
+    pipeline.log.addHandler(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the smoke run's own tensors
+    buf = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
         with contextlib.redirect_stdout(buf):
-            rec_main.main(["-d", tweets, "-o", out2, "-c", conf, "-validate"])
-        warm = json.loads(buf.getvalue().strip().splitlines()[-1])["phase_ms"]
-        with open(out2) as f:
-            lines2 = f.read().splitlines()
-        if [x for x in lines2 if not x.startswith("Execution Time")] != \
-                [x for x in lines if x not in times]:
-            raise AssertionError("the same seed wrote another output file")
-        log(f"phase 13 rerun in the same process: the same file; phase ms {warm}")
-        # K2 at the shape the pipeline hashes: the real users' ratings
-        rows, _ = read_str_vectors(tweets, cfg.csv_delimiter, with_header_p=True)
-        users = build_user_matrix(score_tweets(
-            rows, read_lexicon(cfg.lexicon_file, cfg.csv_delimiter),
-            CoinTable.from_rows(coin_rows)))
-        x = torch.from_numpy(users.ratings).cuda()
-        proj = CosineLsh.create(gen(SEED + 50), x.shape[1], cfg.k, cfg.L, x.device).proj
-        k2 = check_k2(x, proj, cfg.k, cfg.L)
-        k2["geometry"] += " (the pipeline's cosine index, d = 15: two zero columns pad it)"
-        k2_line(13, k2)
-    return dict(launches=launches, seconds=t_run, dataset_s=t_gen, peak_bytes=peak,
-                summary=summary, warm_phase_ms=warm, csr_log=trunc, lines=len(recs), k2=k2)
+            rc = rec_main.main(["-d", tweets, "-o", out, "-c", conf, "-validate"])
+        torch.cuda.synchronize()
+    finally:
+        pipeline.log.removeHandler(rec)
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    if rc != 0:
+        raise AssertionError(f"main exited {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"phase 13 main -validate ({PIPE['n_users']} users, {PIPE['n_tweets']} tweets, "
+        f"{PIPE['n_coins']} coins; dataset written in {t_gen:.1f} s): {t_run:.1f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+        f"held before; launches {launches}")
+    for line in rec.lines:
+        log(f"phase 13 log: {line}")
+    if not launches["signproj_bucket_ids"]:
+        raise AssertionError("the recommender program: K2 did not run")
+    if not any("switching to the csr engine" in m for m in rec.lines):
+        raise AssertionError("phase A did not take the csr engine")
+    trunc = [m for m in rec.lines if m.startswith("csr engine")]
+    if not trunc:
+        raise AssertionError("the csr engine logged no truncation stats")
+    with open(out) as f:
+        lines = f.read().splitlines()
+    cfg = load_config(conf)
+    coin_rows, _ = read_str_vectors(cfg.query_file, cfg.csv_delimiter)
+    names = {r[4] if len(r) > 4 else r[0] for r in coin_rows}
+    headers = [x for x in lines if x in ("Cosine LSH", "Clustering Recommendation")]
+    times = [x for x in lines if x.startswith("Execution Time: ")]
+    recs = [x.split(" ") for x in lines if x not in headers and x not in times]
+    if headers != ["Cosine LSH"] * 2 + ["Clustering Recommendation"] * 2:
+        raise AssertionError(f"headers {headers}")
+    if len(times) != 4:
+        raise AssertionError(f"{len(times)} Execution Time lines")
+    bad = [r for r in recs if not r[0].startswith("user") or not set(r[1:]) <= names]
+    if bad:
+        raise AssertionError(f"{len(bad)} lines name no known coin, e.g. {bad[0]}")
+    mae = summary["mae_10fold"]
+    want = {"phase0", "ingest", "lsh_A", "validate", "lsh_B", "cluster_A", "cluster_B"}
+    if set(summary["phase_ms"]) != want or not np.isfinite(mae) or mae <= 0:
+        raise AssertionError(f"summary {summary}")
+    log(f"phase 13 output: {len(recs)} recommendation lines, headers {headers}, "
+        f"{times}; {summary['n_users']} users, {summary['n_fake_users']} virtual "
+        f"users; phase ms {summary['phase_ms']}; 10-fold CV MAE {mae:.4f}")
+    # the same run again in this process (kernels loaded): the same seed
+    # must write the same file, Execution Time lines aside
+    out2 = os.path.join(tmp, "out2.txt")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec_main.main(["-d", tweets, "-o", out2, "-c", conf, "-validate"])
+    warm = json.loads(buf.getvalue().strip().splitlines()[-1])["phase_ms"]
+    with open(out2) as f:
+        lines2 = f.read().splitlines()
+    if [x for x in lines2 if not x.startswith("Execution Time")] != \
+            [x for x in lines if x not in times]:
+        raise AssertionError("the same seed wrote another output file")
+    log(f"phase 13 rerun in the same process: the same file; phase ms {warm}")
+    # the program's native ingest against one Python score_tweets
+    t0 = time.perf_counter()
+    nat = score_tweets_native(tweets, cfg.lexicon_file, cfg.query_file, cfg.csv_delimiter)
+    t_nat = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rows, _ = read_str_vectors(tweets, cfg.csv_delimiter, with_header_p=True)
+    py = score_tweets(rows, read_lexicon(cfg.lexicon_file, cfg.csv_delimiter),
+                      CoinTable.from_rows(coin_rows))
+    t_py = (time.perf_counter() - t0) * 1e3
+    same = (nat.user_ids == py.user_ids and nat.tweet_ids == py.tweet_ids
+            and nat.n_coins == py.n_coins
+            and all(np.array_equal(getattr(nat, f), getattr(py, f))
+                    for f in ("tweet_user", "scores", "pair_tweet", "pair_coin")))
+    log(f"phase 13 ingest of {nat.n_tweets} tweets: native {t_nat:.0f} ms, Python "
+        f"read + score_tweets {t_py:.0f} ms; batches {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("native and Python ingest differ")
+    users = build_user_matrix(py)
+    # K2 at the shape the pipeline hashes: the real users' ratings
+    x = torch.from_numpy(users.ratings).to(DEV)
+    proj = CosineLsh.create(gen(SEED + 50), x.shape[1], cfg.k, cfg.L, x.device).proj
+    k2 = check_k2(x, proj, cfg.k, cfg.L)
+    k2["geometry"] += " (the pipeline's cosine index, d = 15: two zero columns pad it)"
+    k2_line(13, k2)
+    return (tweets, conf), dict(
+        launches=launches, seconds=t_run, dataset_s=t_gen, peak_bytes=peak,
+        summary=summary, warm_phase_ms=warm, csr_log=trunc, lines=len(recs), k2=k2,
+        ingest_native_ms=t_nat, ingest_python_ms=t_py)
 
 
 # phase 14: 10-fold CV at BENCH_CV.json's point (benchmarks/bench_cv.py):
@@ -1123,7 +1178,509 @@ def phase15(pidx, queries, true_idx):
                 floor=SFLOOR)
 
 
+# ---- phases 16-21: the card against the CPU, the rest of the package ----
+
+def _rec_arrays(rec):
+    return dict(top=rec.top_n.cpu().numpy(), pred=rec.predicted.float().cpu().numpy(),
+                sims=rec.sims.float().cpu().numpy(), nb=rec.neighbor_idx.cpu().numpy(),
+                valid=rec.neighbor_valid.cpu().numpy(), has=rec.has_neighbors.cpu().numpy())
+
+
+def run_program(tweets, conf, out, *extra):
+    """`main -validate` in this process with `extra` flags -> (rc, summary,
+    the Recommendation arrays of the four written phases, in order)."""
+    from crypto_rec_tpu_torch import main as rec_main
+    from crypto_rec_tpu_torch.models.rec import pipeline
+
+    recs = []
+    write = pipeline._write_phase
+
+    def keep(out_f, header, user_ids, rec, coins, timer, phase):
+        recs.append(_rec_arrays(rec))
+        return write(out_f, header, user_ids, rec, coins, timer, phase)
+
+    buf = io.StringIO()
+    pipeline._write_phase = keep
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = rec_main.main(["-d", tweets, "-o", out, "-c", conf, "-validate", *extra])
+    finally:
+        pipeline._write_phase = write
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), recs
+
+
+def _sections(path):
+    """Output file -> [{uid: line}] per phase, Execution Time lines left out."""
+    secs = []
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if line in ("Cosine LSH", "Clustering Recommendation"):
+                secs.append({})
+            elif not line.startswith("Execution Time: "):
+                secs[-1][line.split(" ")[0]] = line
+    return secs
+
+
+def classify(rc, rg, i):
+    """Why user i's line differs between the CPU run (rc) and the card's
+    (rg): "tie" when the differing neighbours or coins hold exactly equal
+    values, "near" when within 1e-5 relative, else "other"."""
+    if rc["has"][i] != rg["has"][i]:
+        return "other"
+    vc, vg = rc["valid"][i], rg["valid"][i]
+    if set(rc["nb"][i][vc].tolist()) != set(rg["nb"][i][vg].tolist()):
+        sc, sg = np.sort(rc["sims"][i][vc]), np.sort(rg["sims"][i][vg])
+        if sc.shape != sg.shape:
+            return "other"
+        if np.array_equal(sc, sg):
+            return "tie"
+        return "near" if np.allclose(sc, sg, rtol=1e-5, atol=0) else "other"
+    a = [c for c in rc["top"][i] if c >= 0]
+    b = [c for c in rg["top"][i] if c >= 0]
+    if len(a) != len(b):
+        return "other"
+    pa, pb = np.sort(rc["pred"][i][a]), np.sort(rc["pred"][i][b])
+    if np.array_equal(pa, pb):
+        return "tie"
+    near = np.allclose(np.sort(rc["pred"][i][a]), np.sort(rg["pred"][i][b]), rtol=1e-5,
+                       atol=0)
+    return "near" if near else "other"
+
+
+# phase 16: a small dataset the CPU runs in seconds
+TIE = dict(n_users=4000, n_tweets=60000, n_coins=15, emb_dim=16, seed=7)
+
+
+def compare_devices(tmp, tweets, conf, row, engine):
+    """`main -validate --engine engine` on the card and on the CPU; each
+    differing recommendation line classified (`classify`)."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"{engine}_{device}.txt")
+        t0 = time.perf_counter()
+        rc, summary, recs = run_program(tweets, conf, out, "--engine", engine,
+                                        "--device", device)
+        if rc != 0 or len(recs) != 4:
+            raise AssertionError(f"main --engine {engine} --device {device}: rc {rc}")
+        runs[device] = (_sections(out), recs, summary, time.perf_counter() - t0)
+    counts = {"differ": 0, "tie": 0, "near": 0, "other": 0}
+    examples = []
+    for s in range(4):
+        gs, cs = runs["cuda"][0][s], runs["cpu"][0][s]
+        for uid in sorted(set(gs) | set(cs), key=lambda u: row[u]):
+            if gs.get(uid) == cs.get(uid):
+                continue
+            kind = classify(runs["cpu"][1][s], runs["cuda"][1][s], row[uid])
+            counts["differ"] += 1
+            counts[kind] += 1
+            if len(examples) < 3:
+                examples.append(dict(phase=s, cpu=cs.get(uid), card=gs.get(uid), kind=kind))
+    return dict(counts, mae_card=runs["cuda"][2]["mae_10fold"],
+                mae_cpu=runs["cpu"][2]["mae_10fold"], card_s=runs["cuda"][3],
+                cpu_s=runs["cpu"][3], examples=examples)
+
+
+def phase16():
+    """The program on the card against the program on the CPU: `main
+    -validate` with each engine twice (--device cuda, --device cpu); the
+    files must agree line for line but for exact ties and near-ties in the
+    neighbour sims or predicted scores, which are counted and printed."""
+    from crypto_rec_tpu_torch.config import load_config
+    from crypto_rec_tpu_torch.io.native import score_tweets_native
+    from crypto_rec_tpu_torch.io.synth import write_synthetic_dataset
+    from crypto_rec_tpu_torch.io.users import build_user_matrix
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tweets, conf = write_synthetic_dataset(os.path.join(tmp, "ds"), **TIE)
+        cfg = load_config(conf)
+        ids = build_user_matrix(score_tweets_native(
+            tweets, cfg.lexicon_file, cfg.query_file, cfg.csv_delimiter)).ids
+        row = {u: i for i, u in enumerate(ids)}
+        for engine in ("mask", "csr", "fused"):
+            r = compare_devices(tmp, tweets, conf, row, engine)
+            log(f"phase 16 engine {engine} ({TIE['n_users']} users, {TIE['n_coins']} coins): "
+                f"card {r['card_s']:.1f} s, CPU {r['cpu_s']:.1f} s; {r['differ']} "
+                f"recommendation lines differ: {r['tie']} exact ties, {r['near']} "
+                f"near-ties (1e-5), {r['other']} other; 10-fold MAE card "
+                f"{r['mae_card']:.6f}, CPU {r['mae_cpu']:.6f}; e.g. {r['examples']}")
+            res[engine] = r
+            if r["other"]:
+                raise AssertionError(f"engine {engine}: {r['other']} lines differ beyond "
+                                     f"a tie or near-tie, e.g. {r['examples']}")
+    return res
+
+
+def phase17(ds, csr_lsh_a_ms):
+    """`main -validate --engine fused` on phase 13's dataset, counted: the
+    program's 15-coin matrix (d = 15) through packed_retrieve_core; four
+    phases written, the MAE, phase A ms beside phase 13's csr."""
+    tweets, conf = ds
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fused.txt")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, summary, recs = run_program(tweets, conf, out, "--engine", "fused")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        secs = _sections(out)
+    if rc != 0 or len(secs) != 4 or not all(secs):
+        raise AssertionError(f"main --engine fused: rc {rc}, {len(secs)} phases")
+    mae = summary["mae_10fold"]
+    pm = summary["phase_ms"]
+    has = float(np.mean(recs[0]["has"]))
+    log(f"phase 17 main -validate --engine fused ({PIPE['n_users']} users, d = "
+        f"{PIPE['n_coins']}): {wall:.1f} s; phase A {pm['lsh_A']} ms (phase 13's csr: "
+        f"{csr_lsh_a_ms} ms), phase B {pm['lsh_B']} ms; {[len(s) for s in secs]} lines "
+        f"per phase, has_neighbors {has:.4f}; MAE {mae:.4f}; launches {launches}")
+    if not launches["signproj_bucket_ids"] or not np.isfinite(mae):
+        raise AssertionError(f"fused program: K2 did not run or MAE {mae}")
+    return dict(launches=launches, seconds=wall, phase_ms=pm, csr_lsh_a_ms=csr_lsh_a_ms,
+                mae=mae, lines=[len(s) for s in secs], has_neighbors=has)
+
+
+# phase 18: the retrieval paths that run no kernel, on phase 5's corpus
+NK = dict(q=8192, cube_probes=20, cube_window=976, cube_floor=0.96, floor=0.99)
+
+
+def phase18(corpus, queries, true_idx, index, q_host, true_host):
+    """Serving without --pack (the unpacked path), per-row int8 cosine and
+    unaugmented per-row int8 euclidean slabs through packed_retrieve_core,
+    a 20-probe cosine cube (the blocked branch), and pack_index_host's
+    slabs against pack_index's byte for byte."""
+    from crypto_rec_tpu_torch import checkpoint
+    from crypto_rec_tpu_torch.models.lsh.hypercube import (
+        build_hypercube, cube_retrieve_topk, pack_cube,
+    )
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, pack_index, pack_index_host, retrieve_topk,
+    )
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    res = {}
+    qs = queries[:NK["q"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        idx_path = os.path.join(tmp, "idx.npz")
+        checkpoint.save_index(idx_path, index)          # unpacked
+        corpus_path = os.path.join(tmp, "corpus.npz")
+        np.savez(corpus_path, vectors=corpus.cpu().numpy())
+        zero_counts()
+        reqs = []
+        for req, t_req, recall in serve_requests(tmp, idx_path, corpus_path, q_host,
+                                                 true_host, ["--per-table", str(PER_TABLE)]):
+            log(f"phase 18 serve_cli retrieve without --pack, request {req}: {REQ_Q} "
+                f"queries in {t_req:.2f} s (restore + unpacked retrieve), recall@{TOP_K} "
+                f"{recall:.4f} (floor {NK['floor']})")
+            if recall < NK["floor"]:
+                raise AssertionError("unpacked serving: recall too low")
+            reqs.append(dict(seconds=t_req, recall=recall))
+        res["serve_unpacked"] = dict(requests=reqs, launches=read_counts())
+
+    def leg(name, obj, run, floor):
+        scores, ids = run()
+        check_topk(scores, ids, NK["q"], N, name)
+        recall = recall_at_k(ids, true_idx[:NK["q"]])
+        t = wall_ms(run, reps=3)
+        log(f"phase 18 {name} (slabs {list(obj.packed.shape)} {str(obj.packed.dtype)[6:]}): "
+            f"q={NK['q']} in {t:.3f} ms ({NK['q'] / t * 1e3:,.0f} q/s), recall@{TOP_K} "
+            f"{recall:.4f} (floor {floor})")
+        if recall < floor:
+            raise AssertionError(f"{name}: recall {recall:.4f} < {floor}")
+        res[name] = dict(ms=t, qps=NK["q"] / t * 1e3, recall=recall, floor=floor)
+
+    pidx = pack_index(index, corpus, dtype=torch.int8, scale_mode="row")
+    leg("cosine per-row int8 (packed_retrieve_core + rerank)", pidx,
+        lambda: retrieve_topk(pidx, qs, corpus, TOP_K, per_table=PER_TABLE), NK["floor"])
+    del pidx
+    eidx = pack_index(build_index(gen(SEED + 21), corpus, "euclidean", E_K, E_L,
+                                  lsh_bucket_div=E_DIV, euclidean_h_w=E_W),
+                      corpus, dtype=torch.int8)
+    if eidx.packed_scale is None or eidx.packed_sqnorm is None:
+        raise AssertionError("euclidean int8 without augment must be per-row with sqnorm")
+    leg("euclidean unaugmented per-row int8 (packed_retrieve_core + rerank)", eidx,
+        lambda: retrieve_topk(eidx, qs, corpus, TOP_K, per_table=E_PT), E_FLOOR)
+    del eidx
+    cube = pack_cube(build_hypercube(gen(SEED + 31), corpus, "cosine", CK, 1.0), corpus,
+                     dtype=torch.int8)
+    leg(f"single cosine cube, {NK['cube_probes']} probes (blocked branch)", cube,
+        lambda: cube_retrieve_topk(cube, qs, corpus, TOP_K, NK["cube_probes"],
+                                   NK["cube_window"]), NK["cube_floor"])
+    del cube
+    torch.cuda.empty_cache()
+    # pack_index_host: host math, table-by-table upload, against the card's pack
+    t0 = time.perf_counter()
+    host = pack_index_host(index, corpus.cpu().numpy(), dtype=torch.int8)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = pack_index(index, corpus, dtype=torch.int8)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    differ = int((host.packed != dev.packed).sum())
+    same = (differ == 0 and torch.equal(host.packed_rows, dev.packed_rows)
+            and torch.equal(host.packed_gscale, dev.packed_gscale))
+    log(f"phase 18 pack_index_host int8 {list(host.packed.shape)}: {t_host:.2f} s (host "
+        f"math + upload) against pack_index on the card {t_dev:.2f} s; {differ} slab "
+        f"bytes differ, rows and scale {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"pack_index_host: {differ} slab bytes differ from pack_index")
+    res["pack_index_host"] = dict(host_s=t_host, device_s=t_dev, bytes_differ=differ)
+    del host, dev
+    torch.cuda.empty_cache()
+    return res
+
+
+# phase 19: bench_100m.py's planted recipe, cut from 100M rows to 16M (4
+# chunks of 4M: the 8.2 GB of int8 slabs stay in the card's host memory);
+# k = 15 keeps ~122 rows a bucket per chunk (100M at k = 16: ~127)
+ST = dict(n=16_000_000, chunks=4, k=15, L=4, window=256, q=16384, floor=0.95)
+
+
+def phase19():
+    """The streamed index: host build (rows generated on the card, copied
+    to the host, hashed and packed in numpy, pinned), K1 against its plain
+    version on every window of chunk 0; then five rounds, each one pass
+    (host clock, and its copies' CUDA-event time) and one copy of every
+    chunk's slab, rows and starts host -> device on one stream with nothing
+    else running (CUDA events), so the pass and the copy rate it is held
+    against share one window; then one counted pass: K1 and K2 must run,
+    recall@10 against the planted truth >= the floor, device peak < 3
+    chunks."""
+    from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
+    from crypto_rec_tpu_torch.models.lsh.streamed import (
+        build_streamed_index, streamed_retrieve_topk,
+    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    n, d, q, tk = ST["n"], D, ST["q"], TOP_K
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    n_centers = max(1024, n // 128)
+    centers = torch.randn(n_centers, d, generator=g, device=dev) * 2.0
+    queries = centers[torch.randint(0, n_centers, (q,), generator=g, device=dev)] \
+        + 0.3 * torch.randn(q, d, generator=g, device=dev)
+    n_planted = q * tk
+    stride = n // n_planted
+    chunk_rows = -(-n // ST["chunks"])
+
+    def chunk_source(ci):
+        lo, hi = ci * chunk_rows, min(n, (ci + 1) * chunk_rows)
+        x = centers[torch.randint(0, n_centers, (hi - lo,), generator=g, device=dev)]
+        x += 0.3 * torch.randn(hi - lo, d, generator=g, device=dev)
+        js = torch.arange(-(-lo // stride), min(n_planted, (hi - 1) // stride + 1),
+                          device=dev)
+        x[js * stride - lo] = queries[js // tk] + 0.15 * torch.randn(
+            len(js), d, generator=g, device=dev)
+        return x.cpu().numpy()
+
+    t0 = time.perf_counter()
+    sidx = build_streamed_index(gen(SEED + 61), chunk_source, n, d, ST["k"], ST["L"],
+                                ST["chunks"])
+    t_build = time.perf_counter() - t0
+    del centers
+    torch.cuda.empty_cache()
+    truth = (torch.arange(n_planted, device=dev) * stride).reshape(q, tk)
+    chunk_bytes = (sidx.slabs[0].numel() + sidx.rows[0].numel() * 4
+                   + sidx.starts[0].numel() * 4)
+    log(f"phase 19 host build ({n} x {d}, {ST['chunks']} chunks of {sidx.chunk_rows}, "
+        f"k={ST['k']} L={ST['L']}, rows generated on the card): {t_build:.1f} s, "
+        f"host index {sidx.host_bytes() / 1e9:.2f} GB pinned")
+    # K1 on every window of chunk 0, against its plain version, and timed
+    slab0 = sidx.slabs[0].to(dev)
+    qv = unit(queries)
+    qb = CosineLsh(torch.from_numpy(sidx.proj).to(dev), ST["k"], ST["L"]).bucket_ids(queries)
+    s0, sizes = _window_offsets(sidx.starts[0].to(dev), qb, ST["window"])
+    label = f"streamed chunk 0, int8 [{ST['L']}, {sidx.chunk_pad}, {d}], q = {q}"
+    err = k1_check(label, slab0, s0, sizes, qv, ST["window"], False)
+    k1 = k1_time(label, slab0, s0, sizes, qv, ST["window"], False, rounds=3)
+    k1["max_abs_err"] = err
+    k1_line(19, k1, err)
+    del slab0, s0, sizes
+    # passes against copies of every chunk's bytes alone, in alternating rounds
+    host = [(sidx.slabs[ci], sidx.rows[ci], sidx.starts[ci]) for ci in range(sidx.n_chunks)]
+    dst = [torch.empty(h.shape, dtype=h.dtype, device=dev) for h in host[0]]
+
+    def copy_all():
+        for chunk in host:
+            for t, h in zip(dst, chunk):
+                t.copy_(h, non_blocking=True)
+
+    nbytes = sidx.host_bytes()
+    streamed_retrieve_topk(sidx, queries, tk, ST["window"])          # warm
+    copy_all()
+    torch.cuda.synchronize()
+    rounds = {"pass_ms": [], "pass_copy_ms": [], "copy_ms": []}
+    for _ in range(5):
+        st = {}
+        streamed_retrieve_topk(sidx, queries, tk, ST["window"], stats=st)
+        rounds["pass_ms"].append(st["wall_s"] * 1e3)
+        rounds["pass_copy_ms"].append(st["copy_ms"])
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        copy_all()
+        e1.record()
+        e1.synchronize()
+        rounds["copy_ms"].append(e0.elapsed_time(e1))
+    med = {k: statistics.median(v) for k, v in rounds.items()}
+    rates = {k.replace("_ms", "_gb_per_s"): nbytes / v / 1e6 for k, v in med.items()}
+    log(f"phase 19 five rounds over {nbytes / 1e9:.2f} GB ({sidx.n_chunks} chunks' slabs, "
+        f"rows and starts): pass {med['pass_ms']:.1f} ms = {rates['pass_gb_per_s']:.2f} GB/s "
+        f"(host clock; its copies {med['pass_copy_ms']:.1f} ms of copy-stream time = "
+        f"{rates['pass_copy_gb_per_s']:.2f} GB/s), every chunk copied alone "
+        f"{med['copy_ms']:.1f} ms = {rates['copy_gb_per_s']:.2f} GB/s (CUDA events); the pass "
+        f"at {100 * med['copy_ms'] / med['pass_ms']:.1f}% of the copy-alone rate; "
+        f"rounds {rounds}")
+    del dst
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    stats = {}
+    vals, ids = streamed_retrieve_topk(sidx, queries, tk, ST["window"], stats=stats)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    check_topk(vals, ids, q, n, "streamed")
+    recall = recall_at_k(ids, truth)
+    log(f"phase 19 streamed pass (q={q}, window {ST['window']}, top-{tk}): "
+        f"{stats['wall_s'] * 1e3:.1f} ms, {stats['qps']:,.0f} q/s, "
+        f"{stats['stream_gb_per_s']:.2f} GB/s streamed, copy/compute overlap "
+        f"{stats.get('overlap_ms', float('nan')):.1f} ms; peak device memory {peak / 1e9:.2f} GB above the "
+        f"baseline (3 chunks: {3 * chunk_bytes / 1e9:.2f} GB); recall@{tk} {recall:.4f} "
+        f"(floor {ST['floor']}; scale cut 100M -> {n} rows); launches {launches}")
+    if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
+        raise AssertionError(f"streamed: a kernel did not run: {launches}")
+    if recall < ST["floor"]:
+        raise AssertionError(f"streamed recall {recall:.4f} < {ST['floor']}")
+    if peak >= 3 * chunk_bytes:
+        raise AssertionError(f"streamed: peak {peak} B >= 3 chunks ({3 * chunk_bytes} B)")
+    del sidx, queries, truth, vals, ids
+    torch.cuda.empty_cache()
+    return dict(launches=launches, stats=stats, rounds=rounds, round_medians_ms=med,
+                round_rates_gb_per_s=rates, build_s=t_build, peak_bytes=peak, chunk_bytes=chunk_bytes, recall=recall,
+                floor=ST["floor"], scale_cut=f"100M -> {n} rows", k1=k1)
+
+
+# phase 20: benchmarks/bench_ivf.py's point on phase 5's corpus
+IV = dict(clusters=1953, train=262144, iters=8, q=8192, nprobes=(2, 4, 8, 16), floor=0.99)
+
+
+def phase20(corpus, queries, true_idx):
+    """IVF: build (k-means on the leading train rows, Lloyd over all rows,
+    bf16 blocks), then the nprobe sweep with q/s and recall@10 each."""
+    from crypto_rec_tpu_torch.models.ivf import build_ivf, ivf_retrieve_topk
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    t0 = time.perf_counter()
+    idx = build_ivf(gen(SEED + 70), corpus, IV["clusters"], "cosine",
+                    max_iterations=IV["iters"], train_rows=IV["train"],
+                    block_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    qs = queries[:IV["q"]]
+    sweep = {}
+    for nprobe in IV["nprobes"]:
+        def run():
+            return ivf_retrieve_topk(idx, qs, nprobe, TOP_K)
+        vals, ids = run()
+        check_topk(vals, ids, IV["q"], N, f"IVF nprobe {nprobe}")
+        t = wall_ms(run, reps=3)
+        sweep[nprobe] = dict(ms=t, qps=IV["q"] / t * 1e3,
+                             recall=recall_at_k(ids, true_idx[:IV["q"]]))
+    log(f"phase 20 IVF ({IV['clusters']} clusters, k-means on {IV['train']} rows x "
+        f"{IV['iters']} iterations, capacity {idx.capacity}, {idx.dropped_rows} rows "
+        f"dropped, bf16 blocks {list(idx.blocks.shape)}): build {t_build:.1f} s; q="
+        f"{IV['q']}: " + "; ".join(f"nprobe {p}: {r['qps']:,.0f} q/s, recall@{TOP_K} "
+                                   f"{r['recall']:.4f}" for p, r in sweep.items()))
+    if sweep[16]["recall"] < IV["floor"]:
+        raise AssertionError(f"IVF recall at nprobe 16 {sweep[16]['recall']:.4f}")
+    res = dict(build_s=t_build, capacity=idx.capacity, dropped_rows=idx.dropped_rows,
+               sweep=sweep, floor=IV["floor"])
+    del idx
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase21(ds):
+    """The CLIs on phase 13's dataset, counted apart: cluster_cli on the
+    embeddings file (lloyd, lsh and cube under kmeans, then pam with lloyd
+    on the first 20,000 rows), each with its silhouette; serve_cli
+    recommend on the program's user matrix (save_user_matrix).  K2 must
+    run on the lsh and cube assignments and on recommend."""
+    from crypto_rec_tpu_torch import checkpoint, cluster_cli, serve_cli
+    from crypto_rec_tpu_torch.config import load_config
+    from crypto_rec_tpu_torch.io.native import score_tweets_native
+    from crypto_rec_tpu_torch.io.users import build_user_matrix
+
+    tweets, conf = ds
+    cfg = load_config(conf)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        emb = cfg.proj2_input
+        with open(emb) as f:
+            head = list(itertools.islice(f, 20000))
+        small = os.path.join(tmp, "emb20k.csv")
+        with open(small, "w") as f:
+            f.writelines(head)
+        runs = [("lloyd", "kmeans", emb), ("lsh", "kmeans", emb), ("cube", "kmeans", emb),
+                ("lloyd", "pam", small)]
+        for assignment, update, path in runs:
+            out = os.path.join(tmp, f"{assignment}_{update}.txt")
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = cluster_cli.main(["-i", path, "-o", out, "-c", conf, "--clusters", "6",
+                                   "--metric", "cosine", "--delimiter",
+                                   cfg.proj2_csv_delimiter, "--assignment", assignment,
+                                   "--update", update])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            with open(out) as f:
+                text = f.read().splitlines()
+            sil = [x for x in text if x.startswith("Silhouette: ")]
+            sizes = [int(x.split("size: ")[1].split(",")[0].rstrip("}"))
+                     for x in text if x.startswith("CLUSTER-")]
+            n_rows = sum(sizes)
+            key = f"{assignment}/{update}"
+            log(f"phase 21 cluster_cli --assignment {assignment} --update {update} "
+                f"({n_rows} rows, k = 6): {wall:.2f} s, sizes {sizes}, {sil[0] if sil else ''}"
+                f", {text[-2]}; launches {launches}")
+            if rc != 0 or len(sizes) != 6 or not sil:
+                raise AssertionError(f"cluster_cli {key}: rc {rc}")
+            if assignment != "lloyd" and not launches["signproj_bucket_ids"]:
+                raise AssertionError(f"cluster_cli {key}: K2 did not run")
+            res[key] = dict(seconds=wall, sizes=sizes, silhouette=sil[0], launches=launches)
+        users = build_user_matrix(score_tweets_native(tweets, cfg.lexicon_file,
+                                                      cfg.query_file, cfg.csv_delimiter))
+        upath = os.path.join(tmp, "users.npz")
+        checkpoint.save_user_matrix(upath, users)
+        out = os.path.join(tmp, "rec.txt")
+        zero_counts()
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = serve_cli.main(["recommend", "--users", upath, "--coins", cfg.query_file,
+                                 "--top-n", "5", "-o", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(out) as f:
+            lines = f.read().splitlines()
+        log(f"phase 21 serve_cli recommend ({len(users.ids)} users): {wall:.2f} s, "
+            f"{len(lines)} lines, {err.getvalue().strip()}; launches {launches}")
+        if rc != 0 or not lines or not launches["signproj_bucket_ids"]:
+            raise AssertionError(f"serve_cli recommend: rc {rc}, launches {launches}")
+        res["recommend"] = dict(seconds=wall, lines=len(lines), launches=launches)
+    return res
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "an NVIDIA GPU", file=sys.stderr)
@@ -1371,10 +1928,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13-15. the recommender program, 10-fold CV, scored candidate sets ----
-    program = phase13()
+    ds_dir = tempfile.TemporaryDirectory()
+    ds, program = phase13(ds_dir.name)
     cv = phase14()
     scored = phase15(pidx, queries_all, true_all)
+
+    # ---- 16-21. card against CPU, and the rest of the single-chip package ----
+    card_vs_cpu = phase16()
+    program_fused = phase17(ds, program["summary"]["phase_ms"]["lsh_A"])
+    index = dataclasses.replace(pidx, packed=None, packed_rows=None, packed_gscale=None)
     del pidx
+    torch.cuda.empty_cache()
+    nonkernel = phase18(corpus, queries_all, true_all, index, q_host, true_host)
+    del index
+    streamed = phase19()
+    ivf = phase20(corpus, queries_all, true_all)
+    clis = phase21(ds)
+    ds_dir.cleanup()
 
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
@@ -1390,15 +1960,25 @@ def main() -> int:
              geometries=[k2, k2_l1, program["k2"], cv["k2"]],
              path_launches=dict(path_launches("signproj_bucket_ids"),
                                 program=program["launches"]["signproj_bucket_ids"],
-                                cv=cv["launches"]["signproj_bucket_ids"])),
+                                cv=cv["launches"]["signproj_bucket_ids"],
+                                program_fused=program_fused["launches"]["signproj_bucket_ids"],
+                                streamed=streamed["launches"]["signproj_bucket_ids"],
+                                **{f"cluster_cli {a}": r["launches"]["signproj_bucket_ids"]
+                                   for a, r in clis.items() if a != "recommend"},
+                                serve_recommend=clis["recommend"]["launches"][
+                                    "signproj_bucket_ids"])),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
              launches=launches["slab_window_dots"], max_abs_err=k1_err,
              **{key: k1_main[key] for key in row_keys}, card=CARD,
-             geometries=[k1_main] + k1_geoms,
+             geometries=[k1_main] + k1_geoms + [streamed["k1"]],
              path_launches=dict(path_launches("slab_window_dots"),
-                                scored_sets=scored["launches"]["slab_window_dots"])),
+                                scored_sets=scored["launches"]["slab_window_dots"],
+                                streamed=streamed["launches"]["slab_window_dots"],
+                                program_fused=program_fused["launches"]["slab_window_dots"],
+                                serve_unpacked=nonkernel["serve_unpacked"]["launches"][
+                                    "slab_window_dots"])),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
@@ -1437,9 +2017,15 @@ def main() -> int:
     for r in (cv, program):
         r.pop("k1", None)
         r.pop("k2")
+    streamed.pop("k1")
+    wall = time.perf_counter() - T_START
+    log(f"chip_smoke wall time: {wall:.1f} s")
     print(json.dumps({"kernels": kernels, "e2e": e2e, "paths": paths,
                       "serving_euclidean": serving, "probes": probes, "program": program,
-                      "cv": cv, "scored_sets": scored, "card": smi}))
+                      "cv": cv, "scored_sets": scored, "card_vs_cpu": card_vs_cpu,
+                      "program_fused": program_fused, "nonkernel_paths": nonkernel,
+                      "streamed": streamed, "ivf": ivf, "clis": clis, "wall_s": wall,
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,6 @@
-"""Index checkpointing in the JAX package's npz archive format (v3).
+"""Index and user-matrix checkpointing in the JAX package's npz formats.
+
+Index archives (v3):
 
 An archive holds a JSON `meta` blob (version, metric, n_buckets, n_rows,
 k, L, w for euclidean tables, packed_dtypes) and the index arrays: the hash
@@ -7,7 +9,8 @@ family (proj; euclidean offsets and weights), the CSR tables, euclidean
 no numpy dtype without ml_dtypes, so bf16 slabs are stored as their uint16
 bit view with "bfloat16" recorded in meta["packed_dtypes"] — the same
 encoding the JAX package writes, so archives move between the two packages
-both ways.
+both ways.  A user-matrix archive holds ratings, known, mean and the user
+ids as a unicode array (`save_user_matrix`), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import json
 import numpy as np
 import torch
 
-from crypto_rec_tpu_torch.models.lsh.index import LshIndex, index_from_numpy
+from crypto_rec_tpu_torch.io.users import UserMatrix
+from crypto_rec_tpu_torch.models.lsh.index import (
+    PACKED_FIELDS, LshIndex, index_from_numpy,
+)
+from crypto_rec_tpu_torch.models.lsh.pstable import PStableLsh
 
 _FORMAT_VERSION = 3
-_PACKED_FIELDS = ("packed", "packed_rows", "packed_detailed", "packed_gscale",
-                  "packed_aug_scale")
 
 
 def _encode(t: torch.Tensor):
@@ -53,7 +58,7 @@ def save_index(path: str, index: LshIndex) -> None:
         arrays["offsets"] = _encode(fam.offsets)[0]
         arrays["weights"] = _encode(fam.weights)[0]
         arrays["detailed"] = _encode(index.detailed)[0]
-    for f in _PACKED_FIELDS:
+    for f in PACKED_FIELDS:
         t = getattr(index, f)
         if t is not None:
             arrays[f], meta["packed_dtypes"][f] = _encode(t)
@@ -73,3 +78,32 @@ def load_index(path: str, device) -> LshIndex:
                 "[L, n] fingerprints)"
             )
         return index_from_numpy(meta, z, device)
+
+
+def save_user_matrix(path: str, um: UserMatrix) -> None:
+    np.savez_compressed(path, ratings=um.ratings, known=um.known, mean=um.mean,
+                        ids=np.asarray(um.ids, dtype=str))
+
+
+def load_user_matrix(path: str) -> UserMatrix:
+    with np.load(path, allow_pickle=False) as z:
+        return UserMatrix(ratings=z["ratings"], known=z["known"], mean=z["mean"],
+                          ids=[str(s) for s in z["ids"]])
+
+
+def index_nbytes(index: LshIndex) -> int:
+    """Device bytes of the index's arrays (the reference's getSize()
+    counters, cust_hashtable.hpp:128-138), counted as the JAX package
+    counts them: the tables, fingerprints, slabs, slab row ids, norms,
+    per-row scales and the hash family (the scalar scales aside)."""
+    total = 0
+    for t in (index.bucket_ids, index.sorted_rows, index.bucket_starts, index.detailed,
+              index.packed, index.packed_rows, index.packed_sqnorm,
+              index.packed_detailed, index.packed_scale):
+        if t is not None:
+            total += t.numel() * t.element_size()
+    fam = index.family
+    total += fam.proj.numel() * fam.proj.element_size()
+    if isinstance(fam, PStableLsh):
+        total += fam.offsets.numel() * 4 + fam.weights.numel() * 4
+    return int(total)

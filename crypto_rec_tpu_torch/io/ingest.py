@@ -11,7 +11,8 @@ Reference semantics (reference lib/data_structures/tweet.cpp:11-42):
 Instead of one Tweet object per line this produces flat arrays (tweet ->
 user index, tweet -> score, and a flattened (tweet, coin) pair list) that
 feed the scatter-add user-matrix builds (io/users.py).  This is the Python
-path; the JAX package's native C++ tokenizer is not ported yet.
+path, the reference for the native C++ tokenizer (io/native.py) that the
+pipeline runs.
 """
 
 from __future__ import annotations

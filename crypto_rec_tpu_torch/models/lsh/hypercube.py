@@ -15,9 +15,9 @@ vertex-CSR order (`pack_cube`), a query's `probes` vertex windows are
 regrouped as probes/8 replicated query rows of 8 windows, and the
 MultiCube lays C cubes' slabs end to end so one launch scores all
 C x probes windows.  Euclidean cubes use the augmented rank layout of
-`index.pack_index`.  The blocked XLA branch of `cube_retrieve_topk`
-(`packed_retrieve_core`, with per-row int8 or unaugmented euclidean
-slabs) is not ported yet and raises `NotImplementedError`.
+`index.pack_index`.  Other slabs (per-row int8, unaugmented euclidean,
+probes % 8 != 0) take the blocked branch of `cube_retrieve_topk`:
+`index.packed_retrieve_core` with the probes as windows over the one slab.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import torch
 
 from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
 from crypto_rec_tpu_torch.models.lsh.index import (
-    _csr_from_buckets, _dedup_fixed, _padded_len, array_getter,
-    family_from_numpy, fill_slab, slab_scales, slab_width,
+    PACKED_FIELDS, _csr_from_buckets, _dedup_fixed, array_getter, family_from_numpy,
+    pack_tables, packed_retrieve_core, rerank_exact,
 )
 from crypto_rec_tpu_torch.models.lsh.pstable import PStableLsh, wrap_int32
 from crypto_rec_tpu_torch.ops.hamming import hamming_probe_order
@@ -40,9 +40,6 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     slab_window_dots,
 )
 
-_CUBE_CORE = ("cube slabs that are not scale-free, and shapes outside the "
-              "kernel branch, take the JAX package's packed_retrieve_core, "
-              "which is not ported yet (ROADMAP Queue 1 item 4)")
 _GROUP = 8      # windows per replicated query row of the shared-slab launch
 
 
@@ -62,6 +59,8 @@ class Hypercube:
     bucket_starts: torch.Tensor       # [1, 2^k + 1]
     packed: Optional[torch.Tensor] = None        # [1, n + pad, d or d_aug]
     packed_rows: Optional[torch.Tensor] = None   # [1, n + pad]
+    packed_sqnorm: Optional[torch.Tensor] = None  # [1, n + pad] (euclidean)
+    packed_scale: Optional[torch.Tensor] = None   # [1, n + pad] (row int8)
     packed_gscale: Optional[torch.Tensor] = None
     packed_aug_scale: Optional[torch.Tensor] = None
 
@@ -215,20 +214,14 @@ def pack_cube(
     augment: bool = False,
 ) -> Hypercube:
     """Attach the packed layout: the corpus in vertex-CSR order, [1, n +
-    pad, d or d_aug] (pack_index for the cube's one table).  Cosine rows
-    are normalized and int8 shares one global scale; augment=True
-    (euclidean) stores the rank layout [x, -|x|^2/2, 0-pad].  Unaugmented
-    euclidean and per-row int8 slabs serve only the blocked XLA branch,
-    which is not ported yet."""
-    d_out = slab_width(cube.metric, dtype, scale_mode, augment, corpus.shape[1])
-    n = corpus.shape[0]
-    g_scale, aug_scale = slab_scales(corpus, not dtype.is_floating_point, augment)
-    n_pad = _padded_len(n, pad)
-    packed = torch.zeros(1, n_pad, d_out, dtype=dtype, device=corpus.device)
-    fill_slab(packed[0], corpus, cube.sorted_rows[0], cube.metric, g_scale, aug_scale)
-    packed_rows = torch.nn.functional.pad(cube.sorted_rows, (0, n_pad - n), value=n)
-    return dataclasses.replace(cube, packed=packed, packed_rows=packed_rows,
-                               packed_gscale=g_scale, packed_aug_scale=aug_scale)
+    pad, d or d_aug] (pack_index for the cube's one table, `pack_tables`).
+    Cosine rows are normalized; int8 shares one global scale for cosine
+    and keeps per-row scales (`packed_scale`) for unaugmented euclidean
+    slabs, which also carry `packed_sqnorm`; augment=True (euclidean)
+    stores the rank layout [x, -|x|^2/2, 0-pad]."""
+    return dataclasses.replace(
+        cube, **pack_tables(cube.sorted_rows, corpus, cube.metric, dtype, pad,
+                            scale_mode, augment))
 
 
 def _shared_slab_topk(dots, a_flat, rows_flat, n_rows, top_k):
@@ -267,14 +260,18 @@ def cube_retrieve_topk(
     probes: int,
     per_probe: int = 256,
     directed: bool = True,
+    q_block: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused hypercube retrieval over the packed layout: probe vertices ->
-    per-vertex slab windows -> K1 -> dedup top-k.  Takes the JAX package's
-    kernel branches under its conditions (hypercube.py:344-362): scale-free
-    cosine slabs, or augmented euclidean slabs, with a 128-multiple width,
-    n_pad >= per_probe + 160 and probes % 8 == 0.  directed=False probes in
-    the reference's Hamming order.  `corpus` is kept for the JAX
-    signature: the blocked branch that reranks against it is not ported.
+    per-vertex slab windows -> scores -> dedup top-k.  Takes the JAX
+    package's branches under its conditions (hypercube.py:344-403):
+    scale-free cosine slabs, or augmented euclidean slabs, with a
+    128-multiple width, n_pad >= per_probe + 160 and probes % 8 == 0 ride
+    shared-slab K1; any other layout takes the blocked branch,
+    `packed_retrieve_core` with the probes as windows over the one slab, in
+    query blocks of q_block, int8 slabs over-fetching min(4 top_k, probes
+    top_k) and reranking exactly against `corpus`.  directed=False probes
+    in the reference's Hamming order.
 
     -> (scores [q, top_k] descending nearest-first, row ids, -1 pad)."""
     if cube.packed is None:
@@ -282,7 +279,7 @@ def cube_retrieve_topk(
     kernel_shape = (cube.packed.shape[-1] % 128 == 0
                     and cube.packed.shape[1] >= per_probe + 160
                     and probes % 8 == 0)
-    if kernel_shape and cube.metric == "cosine":
+    if kernel_shape and cube.metric == "cosine" and cube.packed_scale is None:
         return _cube_retrieve_kernel(cube, queries, top_k, probes, per_probe,
                                      directed=directed)
     if kernel_shape and cube.packed_aug_scale is not None:
@@ -291,7 +288,16 @@ def cube_retrieve_topk(
     if cube.packed_aug_scale is not None:
         raise ValueError("augmented cube slabs are kernel-only (probes % 8 == 0 "
                          "and 128-multiple padded width required)")
-    raise NotImplementedError(_CUBE_CORE)
+    quantized = not cube.packed.dtype.is_floating_point
+    core_k = min(4 * top_k, probes * top_k) if quantized else top_k
+    pv = _probe_vertices(cube, queries, probes, directed)
+    s, ids = packed_retrieve_core(
+        cube.packed, cube.packed_rows, cube.packed_sqnorm, None, cube.bucket_starts,
+        cube.n_rows, cube.metric, queries, pv, None, core_k, per_probe,
+        packed_scale=cube.packed_scale, q_block=q_block)
+    if quantized:
+        return rerank_exact(corpus, cube.metric, queries, ids, top_k)
+    return s, ids
 
 
 def cube_windows(cube: Hypercube, queries: torch.Tensor, probes: int,
@@ -464,9 +470,7 @@ def hypercube_from_numpy(
     """Hand a JAX Hypercube over: meta {metric, k, n_rows, w (euclidean),
     packed_dtypes?}; arrays proj, offsets + weights + mix_mul + mix_add
     (euclidean), vertices, sorted_rows, bucket_starts and the optional
-    packed, packed_rows, packed_gscale, packed_aug_scale."""
-    if "packed_scale" in arrays or "packed_sqnorm" in arrays:
-        raise NotImplementedError(_CUBE_CORE)
+    packed fields (index.PACKED_FIELDS, packed_detailed aside)."""
     get = array_getter(meta, arrays, device)
     k = int(meta["k"])
     return Hypercube(
@@ -474,9 +478,8 @@ def hypercube_from_numpy(
         family=family_from_numpy(dict(meta, L=1), arrays, device),
         mix_mul=get("mix_mul"), mix_add=get("mix_add"),
         vertices=get("vertices"), sorted_rows=get("sorted_rows"),
-        bucket_starts=get("bucket_starts"), packed=get("packed"),
-        packed_rows=get("packed_rows"), packed_gscale=get("packed_gscale"),
-        packed_aug_scale=get("packed_aug_scale"),
+        bucket_starts=get("bucket_starts"),
+        **{f: get(f) for f in PACKED_FIELDS if f != "packed_detailed"},
     )
 
 

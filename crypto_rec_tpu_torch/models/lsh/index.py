@@ -4,7 +4,7 @@ The reference stores each table as pointer buckets and unions a query's
 buckets across L tables through a std::set (reference
 lib/data_structures/cust_hashtable.hpp, lsh_cube.hpp:77-106).  Here, as in
 the JAX package, each table is a CSR layout: rows sorted by bucket id plus
-an offset table.  Three query paths:
+an offset table.  Four query paths:
 
 1. **Dense mask** (`candidate_mask`): exact reference semantics, [q, n].
 2. **CSR fixed budget** (`candidate_ids`, `gather_candidate_ids`): a
@@ -16,12 +16,16 @@ an offset table.  Three query paths:
    table scored by kernel K1, dedup top-k epilogue.  Cosine slabs hold
    normalized rows; euclidean slabs the AUGMENTED rows [x, -|x|^2/2, 0-pad],
    whose plain dot with [q, s, 0-pad] is the monotone rank x.q - |x|^2/2.
+4. **Blocked packed retrieval** (`packed_retrieve_core`) and the unpacked
+   path (`_retrieve_topk_unpacked`): plain torch, as the JAX package runs
+   them outside any Pallas kernel — per-row int8 slabs, unaugmented
+   euclidean slabs with `packed_sqnorm`, and cosine slabs outside the
+   kernel's shapes.  Queries go in blocks of `q_block`, which bounds the
+   [q_block, T * B, W, d] window gather.
 
 Kernels run where the tensors live: CUDA tensors launch the Hopper kernels
 (K2 for the cosine hash, K1 for the window dots), CPU tensors their plain
-PyTorch versions.  The unpacked and the XLA-blocked packed retrieval paths
-(`_retrieve_topk_block`, `packed_retrieve_core`) and per-row int8 slabs are
-not ported yet and raise `NotImplementedError` naming their ROADMAP item.
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -36,14 +40,11 @@ import torch
 from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
 from crypto_rec_tpu_torch.models.lsh.pstable import PStableLsh
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    _window_offsets, augment_queries, euclid_window_offsets, lane_rows,
-    packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_window_dots,
+    _dedup_topk_pairs, _window_offsets, augment_queries, euclid_window_offsets,
+    lane_rows, packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_window_dots,
 )
+from crypto_rec_tpu_torch.ops.topk import topk_desc
 
-_ROW_INT8 = "per-row int8 slabs are not ported yet (ROADMAP Queue 1 item 4)"
-_CORE = ("euclidean slabs without the augmented layout take the JAX "
-         "package's packed_retrieve_core, which is not ported yet (ROADMAP "
-         "Queue 1 item 4); pack with augment=True")
 _PACK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
 _PACK_CHUNK = 1 << 20        # rows per pack step: bounds the f32 gather
@@ -64,6 +65,9 @@ class LshIndex:
     packed:           [L, n + pad, d or d_aug] (f32, bf16, int8).
     packed_rows:      [L, n + pad] int32 — sorted_rows padded with sentinel n.
     packed_detailed:  [L, n + pad] int32 CSR-ordered fingerprints (euclidean).
+    packed_sqnorm:    [L, n + pad] f32 |row|^2 (unaugmented euclidean slabs).
+    packed_scale:     [L, n + pad] f32 per-row dequant scales (per-row int8
+                      slabs: row ~ packed * scale; pad rows 1).
     packed_gscale:    f32 scalar, the one dequant scale of global-scale int8
                       slabs: raw kernel dots x this scale ~ sims / ranks.
     packed_aug_scale: f32 scalar of the augmented layout: the query's norm
@@ -81,8 +85,14 @@ class LshIndex:
     packed: Optional[torch.Tensor] = None
     packed_rows: Optional[torch.Tensor] = None
     packed_detailed: Optional[torch.Tensor] = None
+    packed_sqnorm: Optional[torch.Tensor] = None
+    packed_scale: Optional[torch.Tensor] = None
     packed_gscale: Optional[torch.Tensor] = None
     packed_aug_scale: Optional[torch.Tensor] = None
+
+
+PACKED_FIELDS = ("packed", "packed_rows", "packed_detailed", "packed_sqnorm",
+                 "packed_scale", "packed_gscale", "packed_aug_scale")
 
 
 def array_getter(meta: Mapping, arrays: Mapping[str, np.ndarray], device):
@@ -123,12 +133,7 @@ def index_from_numpy(
     layout): meta {metric, n_buckets, n_rows, k, L, w (euclidean),
     packed_dtypes?}; arrays proj, offsets + weights (euclidean),
     bucket_ids, sorted_rows, bucket_starts, detailed (euclidean) and the
-    optional packed, packed_rows, packed_detailed, packed_gscale,
-    packed_aug_scale."""
-    if "packed_scale" in arrays:
-        raise NotImplementedError(_ROW_INT8)
-    if "packed_sqnorm" in arrays:
-        raise NotImplementedError(_CORE)
+    optional PACKED_FIELDS."""
     get = array_getter(meta, arrays, device)
     return LshIndex(
         metric=meta["metric"],
@@ -139,11 +144,7 @@ def index_from_numpy(
         sorted_rows=get("sorted_rows"),
         bucket_starts=get("bucket_starts"),
         detailed=get("detailed") if meta["metric"] == "euclidean" else None,
-        packed=get("packed"),
-        packed_rows=get("packed_rows"),
-        packed_detailed=get("packed_detailed"),
-        packed_gscale=get("packed_gscale"),
-        packed_aug_scale=get("packed_aug_scale"),
+        **{f: get(f) for f in PACKED_FIELDS},
     )
 
 
@@ -269,30 +270,65 @@ def _row_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
 
 
+def _pack_norms(x: torch.Tensor) -> torch.Tensor:
+    """[m, 1] f32 norms of f32 rows for cosine packing, summed in float64:
+    each square is exact in float64 and the sum's error stays far below
+    one f32 step, so the norm rounded to f32 is the same whichever order a
+    device sums in, and cosine slabs packed on the card and on the host
+    (pack_index_host) hold the same bytes."""
+    return torch.sqrt(torch.sum(torch.square(x.double()), dim=1)).float()[:, None]
+
+
 def _padded_len(n: int, pad: int) -> int:
     """n + pad rounded up to a 512 multiple (the JAX layout's block grid)."""
     return n + (-(n + pad) % 512 + pad)
 
 
-def slab_scales(corpus: torch.Tensor, quantized: bool, augment: bool):
+def resolve_scale_mode(metric: str, dtype: torch.dtype, scale_mode: str,
+                       augment: bool) -> str:
+    """pack_index's scale_mode rule: "auto" is "global" for cosine and
+    augmented int8, "none" for augmented float slabs and "row" (per-row
+    scales) for unaugmented euclidean slabs."""
+    if augment and metric != "euclidean":
+        raise ValueError("augment=True is the euclidean rank layout")
+    if not dtype.is_floating_point and dtype != torch.int8:
+        raise ValueError(f"quantized slabs are int8, got {dtype}")
+    quantized = not dtype.is_floating_point
+    if scale_mode == "auto":
+        if augment:
+            scale_mode = "global" if quantized else "none"
+        else:
+            scale_mode = "global" if metric == "cosine" else "row"
+    if scale_mode not in ("global", "row", "none"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    if augment and scale_mode == "row":
+        raise ValueError("augmented slabs use one global scale, not per-row")
+    return scale_mode
+
+
+def slab_scales(corpus: torch.Tensor, metric: str, quantized: bool, scale_mode: str,
+                augment: bool):
     """-> (g_scale, aug_scale), f32 scalars or None, over the whole corpus.
 
-    Cosine int8: amax of the normalized rows / 127.  Augmented euclidean:
-    int8 columns share g = amax|x| / 127 and the norm column has its own
-    s = max(|x|^2 / 2) / (127 g), so dot x g stays the rank; float slabs
-    store the column as is (s = 1)."""
+    Global-scale int8: amax of the rows (cosine: of the normalized rows) /
+    127.  Augmented euclidean: int8 columns share g = amax|x| / 127 and the
+    norm column has its own s = max(|x|^2 / 2) / (127 g), so dot x g stays
+    the rank; float slabs store the column as is (s = 1)."""
     if augment:
         norm_half_max = torch.max(torch.sum(corpus * corpus, dim=1)) / 2.0
         if not quantized:
             return None, torch.tensor(1.0, device=corpus.device)
         g = torch.clamp(torch.max(torch.abs(corpus)).float(), min=1e-30) / 127.0
         return g, torch.clamp(norm_half_max, min=1e-30) / (127.0 * g)
-    if not quantized:
+    if not quantized or scale_mode != "global":
         return None, None
-    amax = torch.max(
-        torch.amax(torch.abs(corpus), dim=1)
-        / torch.clamp(_row_norms(corpus.float())[:, 0], min=1e-30)
-    ).float()
+    if metric == "cosine":
+        amax = torch.max(
+            torch.amax(torch.abs(corpus), dim=1)
+            / torch.clamp(_pack_norms(corpus)[:, 0], min=1e-30)
+        ).float()
+    else:
+        amax = torch.max(torch.abs(corpus)).float()
     return torch.clamp(amax, min=1e-30) / 127.0, None
 
 
@@ -303,48 +339,74 @@ def _slab_rows(
     g_scale: Optional[torch.Tensor],
     aug_scale: Optional[torch.Tensor],
     d_out: int,
-) -> torch.Tensor:
-    """[m, d] f32 rows -> [m, d_out] slab rows in `dtype`: cosine rows
-    normalized; augmented rows [x, -|x|^2/2, 0-pad]; int8 symmetric with
-    the global scale (round half to even, as jnp.round)."""
+    per_row: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """[m, d] f32 rows -> ([m, d_out] slab rows in `dtype`, [m] per-row
+    scales or None): cosine rows normalized; augmented rows [x, -|x|^2/2,
+    0-pad]; int8 symmetric with the global scale, or with each row's own
+    amax / 127 when per_row (round half to even, as jnp.round)."""
     quantized = not dtype.is_floating_point
     if metric == "cosine":
-        g = g / torch.clamp(_row_norms(g), min=1e-30)
+        g = g / torch.clamp(_pack_norms(g), min=1e-30)
     if aug_scale is None:
+        if quantized and per_row:
+            scale = torch.clamp(torch.amax(torch.abs(g), dim=1, keepdim=True),
+                                min=1e-30) / 127.0
+            return torch.clamp(torch.round(g / scale), -127, 127).to(dtype), scale[:, 0]
         if quantized:
             g = torch.clamp(torch.round(g / g_scale), -127, 127)
-        return g.to(dtype)
+        return g.to(dtype), None
     norm_col = (-torch.sum(g * g, dim=1) / 2.0)[:, None]
     if quantized:
         g = torch.clamp(torch.round(g / g_scale), -127, 127)
         norm_col = torch.clamp(torch.round(norm_col / (g_scale * aug_scale)), -127, 0)
     zeros = torch.zeros(g.shape[0], d_out - g.shape[1] - 1, device=g.device)
-    return torch.cat([g, norm_col, zeros], dim=1).to(dtype)
-
-
-def slab_width(metric: str, dtype: torch.dtype, scale_mode: str, augment: bool,
-               d: int) -> int:
-    """Check that the port has the packed layout asked for; -> its row
-    width: d, or for augmented rows d + 1 rounded up to 128."""
-    if augment and metric != "euclidean":
-        raise ValueError("augment=True is the euclidean rank layout")
-    if metric == "euclidean" and not augment:
-        raise NotImplementedError(_CORE)
-    if scale_mode not in ("auto", "global"):
-        raise NotImplementedError(_ROW_INT8)
-    if not dtype.is_floating_point and dtype != torch.int8:
-        raise ValueError(f"quantized slabs are int8, got {dtype}")
-    return -(-(d + 1) // 128) * 128 if augment else d
+    return torch.cat([g, norm_col, zeros], dim=1).to(dtype), None
 
 
 def fill_slab(out: torch.Tensor, corpus: torch.Tensor, rows: torch.Tensor,
-              metric: str, g_scale, aug_scale) -> None:
-    """out[:len(rows)] = slab_rows of corpus[rows], in row chunks, which
-    bounds the f32 gather temporary to one [chunk, d] block."""
+              metric: str, g_scale, aug_scale, scale_out=None, sq_out=None) -> None:
+    """out[:len(rows)] = slab rows of corpus[rows], in row chunks, which
+    bounds the f32 gather temporary to one [chunk, d] block; per-row int8
+    scales go to scale_out and the raw rows' |x|^2 to sq_out when given."""
     for s in range(0, rows.shape[0], _PACK_CHUNK):
         e = min(rows.shape[0], s + _PACK_CHUNK)
-        out[s:e] = _slab_rows(corpus[rows[s:e].long()].float(), metric, out.dtype,
-                             g_scale, aug_scale, out.shape[-1])
+        g = corpus[rows[s:e].long()].float()
+        out[s:e], scale = _slab_rows(g, metric, out.dtype, g_scale, aug_scale,
+                                     out.shape[-1], per_row=scale_out is not None)
+        if scale_out is not None:
+            scale_out[s:e] = scale
+        if sq_out is not None:
+            sq_out[s:e] = torch.sum(g * g, dim=1)
+
+
+def pack_tables(sorted_rows: torch.Tensor, corpus: torch.Tensor, metric: str,
+                dtype: torch.dtype, pad: int, scale_mode: str, augment: bool) -> dict:
+    """The packed fields of `pack_index` for CSR tables sorted_rows [T, n]
+    (the cube passes its one table): packed, packed_rows, and the scales
+    and norms the layout needs (packed_sqnorm, packed_scale, packed_gscale,
+    packed_aug_scale), each None when absent.  Tables are packed one at a
+    time (`fill_slab`)."""
+    mode = resolve_scale_mode(metric, dtype, scale_mode, augment)
+    quantized = not dtype.is_floating_point
+    d = corpus.shape[1]
+    d_out = -(-(d + 1) // 128) * 128 if augment else d
+    T, n = sorted_rows.shape
+    dev = corpus.device
+    g_scale, aug_scale = slab_scales(corpus, metric, quantized, mode, augment)
+    n_pad = _padded_len(n, pad)
+    packed = torch.zeros(T, n_pad, d_out, dtype=dtype, device=dev)
+    scale = (torch.ones(T, n_pad, device=dev) if quantized and mode == "row"
+             else None)
+    sq = (torch.zeros(T, n_pad, device=dev) if metric == "euclidean" and not augment
+          else None)
+    for t in range(T):
+        fill_slab(packed[t], corpus, sorted_rows[t], metric, g_scale, aug_scale,
+                  None if scale is None else scale[t], None if sq is None else sq[t])
+    return dict(packed=packed,
+                packed_rows=torch.nn.functional.pad(sorted_rows, (0, n_pad - n), value=n),
+                packed_sqnorm=sq, packed_scale=scale, packed_gscale=g_scale,
+                packed_aug_scale=aug_scale)
 
 
 def pack_index(
@@ -362,31 +424,74 @@ def pack_index(
     Cosine rows are L2-normalized.  augment=True (euclidean only) stores
     [x, -|x|^2/2, 0-pad] in d_aug = ceil((d+1)/128)*128 columns, so K1's
     plain dot with [q, s, 0-pad] is the rank x.q - |x|^2/2.
-    dtype=torch.int8 stores symmetric quantized slabs with ONE global scale
-    (`slab_scales`; scale_mode "auto" == "global"), so raw int8 dots are
-    order-preserving; augmented int8 adds the norm column's own scale.
-    Per-row scales (scale_mode "row", the euclidean default without
-    augment) are not ported yet.
-
-    Tables are packed one at a time (`fill_slab`)."""
-    d_out = slab_width(index.metric, dtype, scale_mode, augment, corpus.shape[1])
-    L, n = index.sorted_rows.shape
-    g_scale, aug_scale = slab_scales(corpus, not dtype.is_floating_point, augment)
-    n_pad = _padded_len(n, pad)
-    packed = torch.zeros(L, n_pad, d_out, dtype=dtype, device=corpus.device)
-    for l in range(L):
-        fill_slab(packed[l], corpus, index.sorted_rows[l], index.metric, g_scale,
-                  aug_scale)
-    packed_rows = torch.nn.functional.pad(index.sorted_rows, (0, n_pad - n), value=n)
-    packed_detailed = None
+    dtype=torch.int8 stores symmetric quantized slabs; scale_mode picks the
+    granularity (`resolve_scale_mode`): "global", ONE scale for the index
+    (raw int8 dots are order-preserving; augmented int8 adds the norm
+    column's own scale), or "row", a scale per row in `packed_scale`
+    (row ~ packed * scale), which the blocked retrieval applies to each
+    dot.  Unaugmented euclidean slabs carry `packed_sqnorm` for the
+    distance -sqrt(|x|^2 - 2 x.q + |q|^2); euclidean slabs carry the
+    CSR-ordered fingerprints."""
+    kw = pack_tables(index.sorted_rows, corpus, index.metric, dtype, pad, scale_mode,
+                     augment)
+    n_pad = kw["packed"].shape[1]
     if index.detailed is not None:
-        packed_detailed = torch.nn.functional.pad(
+        kw["packed_detailed"] = torch.nn.functional.pad(
+            torch.gather(index.detailed, 1, index.sorted_rows.long()),
+            (0, n_pad - index.n_rows))
+    return dataclasses.replace(index, **kw)
+
+
+def pack_index_host(
+    index: LshIndex,
+    corpus_host,                   # numpy [n, d] f32 (or a CPU tensor)
+    dtype: torch.dtype = torch.int8,
+    pad: int = 4096,
+    augment: bool = False,
+) -> LshIndex:
+    """pack_index computed on the HOST, the slabs uploaded table by table.
+
+    The gather, normalization and quantization run in torch on the CPU
+    against a host corpus, so the device never holds the f32 corpus during
+    the pack: a preallocated device buffer is filled one table at a time
+    from pinned memory, and the device peak is the slabs plus one table's
+    copy in flight.  Global-scale layouts only (cosine, or euclidean with
+    augment=True), with pack_index's math (its own helpers, on the CPU)."""
+    if not augment and index.metric != "cosine":
+        raise ValueError("pack_index_host covers global-scale layouts: cosine, or "
+                         "euclidean with augment=True")
+    if dtype not in (torch.int8, torch.bfloat16, torch.float32):
+        raise ValueError(f"pack_index_host takes int8, bfloat16 or float32 slabs, "
+                         f"got {dtype}")
+    dev = index.sorted_rows.device
+    x = torch.as_tensor(corpus_host, dtype=torch.float32, device="cpu")
+    rows_host = index.sorted_rows.cpu()
+    L, n = rows_host.shape
+    d = x.shape[1]
+    d_out = -(-(d + 1) // 128) * 128 if augment else d
+    quantized = dtype == torch.int8
+    g_scale, aug_scale = slab_scales(x, index.metric, quantized,
+                                     resolve_scale_mode(index.metric, dtype, "auto",
+                                                        augment), augment)
+    n_pad = _padded_len(n, pad)
+    packed = torch.zeros(L, n_pad, d_out, dtype=dtype, device=dev)
+    staging = torch.zeros(n_pad, d_out, dtype=dtype)
+    if dev.type == "cuda":
+        staging = staging.pin_memory()
+    for l in range(L):
+        fill_slab(staging, x, rows_host[l], index.metric, g_scale, aug_scale)
+        packed[l].copy_(staging, non_blocking=True)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()   # staging is reused
+    kw = dict(packed=packed,
+              packed_rows=torch.nn.functional.pad(index.sorted_rows, (0, n_pad - n),
+                                                  value=n),
+              packed_gscale=None if g_scale is None else g_scale.to(dev),
+              packed_aug_scale=None if aug_scale is None else aug_scale.to(dev))
+    if augment and index.detailed is not None:
+        kw["packed_detailed"] = torch.nn.functional.pad(
             torch.gather(index.detailed, 1, index.sorted_rows.long()), (0, n_pad - n))
-    return dataclasses.replace(
-        index, packed=packed, packed_rows=packed_rows,
-        packed_detailed=packed_detailed, packed_gscale=g_scale,
-        packed_aug_scale=aug_scale,
-    )
+    return dataclasses.replace(index, **kw)
 
 
 def query_hashes(
@@ -475,6 +580,32 @@ def _dedup_rank_fixed(
     return out
 
 
+def _window_ids(sorted_rows, bucket_starts, detailed, n_rows, q_buckets, q_detailed,
+                per_table):
+    """The [q, L * per_table] row ids of each query's table windows, pad
+    slots n_rows: per query and table a window of up to `per_table` CSR
+    positions, at the query's exact-tuple run when `detailed` is given,
+    else at the pseudo-random offset of `_window_offsets`.  -> (ids, bucket
+    start, bucket end [q, L])."""
+    L = sorted_rows.shape[0]
+    dev = q_buckets.device
+    l_idx = torch.arange(L, device=dev)[None, :]
+    qb = q_buckets.long()
+    start = bucket_starts[l_idx, qb].long()                          # [q, L]
+    end = bucket_starts[l_idx, qb + 1].long()
+    if detailed is not None:
+        base = _fp_run_starts(lambda p: detailed[l_idx, sorted_rows[l_idx, p].long()],
+                              start, end, q_detailed, n_rows).long()
+    else:
+        base = _window_offsets(bucket_starts, q_buckets, per_table)[0].long()
+    offs = base[:, :, None] + torch.arange(per_table, device=dev)     # [q, L, P]
+    valid = offs < end[:, :, None]
+    rows = sorted_rows[l_idx[:, :, None], torch.clamp(offs, max=n_rows - 1)]
+    if detailed is not None:
+        valid &= detailed[l_idx[:, :, None], rows.long()] == q_detailed[:, :, None]
+    return torch.where(valid, rows, n_rows).reshape(q_buckets.shape[0], -1), start, end
+
+
 def gather_candidate_ids(
     sorted_rows: torch.Tensor,        # [L, n] CSR member arrays
     bucket_starts: torch.Tensor,      # [L, nb + 1]
@@ -503,22 +634,8 @@ def gather_candidate_ids(
                            start at the exact-tuple run)."""
     L = sorted_rows.shape[0]
     per_table = per_table or budget
-    dev = q_buckets.device
-    l_idx = torch.arange(L, device=dev)[None, :]
-    qb = q_buckets.long()
-    start = bucket_starts[l_idx, qb].long()                          # [q, L]
-    end = bucket_starts[l_idx, qb + 1].long()
-    if detailed is not None:
-        base = _fp_run_starts(lambda p: detailed[l_idx, sorted_rows[l_idx, p].long()],
-                              start, end, q_detailed, n_rows).long()
-    else:
-        base = _window_offsets(bucket_starts, q_buckets, per_table)[0].long()
-    offs = base[:, :, None] + torch.arange(per_table, device=dev)     # [q, L, P]
-    valid = offs < end[:, :, None]
-    rows = sorted_rows[l_idx[:, :, None], torch.clamp(offs, max=n_rows - 1)]
-    if detailed is not None:
-        valid &= detailed[l_idx[:, :, None], rows.long()] == q_detailed[:, :, None]
-    gathered = torch.where(valid, rows, n_rows).reshape(q_buckets.shape[0], -1)
+    gathered, start, end = _window_ids(sorted_rows, bucket_starts, detailed, n_rows,
+                                       q_buckets, q_detailed, per_table)
     if not with_stats:
         return _dedup_rank_fixed(gathered, n_rows, budget, L)
     ids, n_unique = _dedup_rank_fixed(gathered, n_rows, budget, L, with_count=True)
@@ -664,6 +781,8 @@ def retrieve_topk_pallas(
         raise ValueError("retrieve_topk_pallas requires a packed index")
     if index.metric != "cosine":
         raise ValueError("retrieve_topk_pallas is cosine-only; use retrieve_topk")
+    if index.packed_scale is not None:
+        raise ValueError("per-row int8 slabs take packed_retrieve_core; use retrieve_topk")
     q_buckets, _ = query_hashes(index, queries)
     quantized = not index.packed.dtype.is_floating_point
     scale_free = quantized and not int8_rerank and index.packed_gscale is not None
@@ -683,6 +802,156 @@ def retrieve_topk_pallas(
     return s, ids
 
 
+def _in_blocks(fn, q_block: int, *per_query):
+    """fn over query blocks of q_block rows (None arguments pass as None),
+    each output concatenated along the queries."""
+    q = per_query[0].shape[0]
+    if q <= q_block:
+        return fn(*per_query)
+    outs = [fn(*(None if a is None else a[s:s + q_block] for a in per_query))
+            for s in range(0, q, q_block)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _stage_dedup(score: torch.Tensor, ids: torch.Tensor, n_rows: int, m1: int,
+                 top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocked paths' two-stage top-k: the flat top m1 of score [q, m]
+    with duplicates (ids [q, m], sentinel n_rows on pads), then the id-sorted
+    dedup to top_k."""
+    s1, pos1 = topk_desc(score, min(m1, score.shape[1]))
+    return _dedup_topk_pairs(s1, torch.gather(ids, 1, pos1), n_rows, top_k)
+
+
+def _core_block(packed, packed_rows, packed_sqnorm, packed_detailed, packed_scale,
+                bucket_starts, n, metric, queries, q_buckets, q_detailed, top_k,
+                per_table, W):
+    L, n_pad, d = packed.shape
+    q, T = q_buckets.shape
+    dev = packed.device
+    B = (per_table + W - 2) // W + 1
+    nblk = n_pad // W
+    slab_idx = torch.arange(T, device=dev) % L                  # slab of window t
+    qb = q_buckets.long()
+    end = bucket_starts[slab_idx[None, :], qb + 1].long()       # [q, T]
+    if packed_detailed is not None:
+        # (bucket, fingerprint)-sorted slabs: start at the exact-tuple run
+        start = bucket_starts[slab_idx[None, :], qb].long()
+        flat_fp = packed_detailed.reshape(-1)
+        base = slab_idx[None, :].long() * n_pad
+        s0 = _fp_run_starts(lambda p: flat_fp[base + p], start, end, q_detailed, n_pad)
+    else:
+        s0, _ = _window_offsets(bucket_starts[slab_idx], q_buckets, per_table)
+    s0 = s0.long()
+    lim = torch.minimum(s0 + per_table, end)
+    blk = torch.div(s0, W, rounding_mode="floor")[:, :, None] + torch.arange(B, device=dev)
+    gidx = (slab_idx[None, :, None] * nblk + blk).reshape(q, T * B)
+    pos = blk[..., None] * W + torch.arange(W, device=dev)      # [q, T, B, W]
+    valid = (pos >= s0[..., None, None]) & (pos < lim[..., None, None])
+    cand = packed.reshape(nblk * L, W, d)[gidx]                 # [q, T*B, W, d]
+    rows = packed_rows.reshape(nblk * L, W)[gidx]               # [q, T*B, W]
+    if packed_detailed is not None:
+        dblk = packed_detailed.reshape(nblk * L, W)[gidx]
+        valid &= dblk.reshape(q, T, B, W) == q_detailed[:, :, None, None]
+    qv = queries.float()
+    if metric == "cosine":
+        qv = qv / torch.clamp(_row_norms(qv), min=1e-30)
+    # int8 and bf16 slabs are scored against the query rounded to bf16 (the
+    # JAX core's bf16 x bf16 product, f32 accumulate); both are exact in f32
+    qk = qv if packed.dtype == torch.float32 else qv.to(torch.bfloat16).float()
+    dots = torch.einsum("qd,qmwd->qmw", qk, cand.float())
+    del cand
+    if packed_scale is not None:
+        dots = dots * packed_scale.reshape(nblk * L, W)[gidx]
+    if metric == "cosine":
+        score = dots                          # packed rows are pre-normalized
+    else:
+        sq = packed_sqnorm.reshape(nblk * L, W)[gidx]
+        qsq = torch.sum(qv * qv, dim=1)
+        score = -torch.sqrt(torch.clamp(sq - 2.0 * dots + qsq[:, None, None], min=0.0))
+    m = T * B * W
+    valid = valid.reshape(q, m)
+    score = torch.where(valid, score.reshape(q, m), float("-inf"))
+    ids = torch.where(valid, rows.reshape(q, m), n)
+    return _stage_dedup(score, ids, n, T * top_k, top_k)
+
+
+def packed_retrieve_core(
+    packed: torch.Tensor,           # [L, n_pad, d] CSR-ordered corpus copies
+    packed_rows: torch.Tensor,      # [L, n_pad] int32, sentinel n past the end
+    packed_sqnorm: Optional[torch.Tensor],    # [L, n_pad] f32 (euclidean)
+    packed_detailed: Optional[torch.Tensor],  # [L, n_pad] fingerprints or None
+    bucket_starts: torch.Tensor,    # [L, n_buckets + 1]
+    n_rows: int,
+    metric: str,
+    queries: torch.Tensor,          # [q, d]
+    q_buckets: torch.Tensor,        # [q, T]
+    q_detailed: Optional[torch.Tensor],   # [q, T] fingerprints
+    top_k: int,
+    per_table: int,
+    block_rows: int = 128,
+    packed_scale: Optional[torch.Tensor] = None,   # [L, n_pad] f32 (row int8)
+    q_block: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Retrieval over the packed layout in plain torch (the JAX package's
+    blocked XLA core): each query/table window [s0, s0 + per_table) is
+    covered by B aligned W-row blocks of the CSR-ordered slab, fetched
+    with one batched gather; rows outside [s0, min(s0 + per_table, bucket
+    end)) are masked.  Cosine slabs score the normalized query's dot;
+    per-row int8 dots are scaled by `packed_scale`; euclidean scores are
+    -sqrt(|x|^2 - 2 x.q + |q|^2) from `packed_sqnorm`.  Stage 1 keeps the
+    flat top T * top_k with duplicates (equal scores lowest lane first),
+    stage 2 dedups by id to top_k.
+
+    The window count T comes from q_buckets.shape[1] and window t reads
+    slab t % L: the LSH index has T == L; the hypercube passes L == 1 slab
+    and T == probes.  Queries go in blocks of q_block rows, which bounds
+    the [q_block, T * B, W, d] gather.
+
+    -> (scores [q, top_k] descending, row ids [q, top_k] int32, -1 pad)."""
+    n_pad = packed.shape[1]
+    W = block_rows
+    while n_pad % W:                  # pack_index pads to a 512 multiple
+        W //= 2
+    if W < 8:
+        raise ValueError(f"packed length {n_pad} not divisible by a block size")
+    if per_table + 2 * W > n_pad - n_rows:
+        raise ValueError(
+            f"per_table={per_table} (+2 blocks of {W}) exceeds packed pad="
+            f"{n_pad - n_rows}; re-pack with pack_index(..., pad>={per_table + 2 * W})")
+    return _in_blocks(
+        lambda qs, qb, qd: _core_block(
+            packed, packed_rows, packed_sqnorm, packed_detailed, packed_scale,
+            bucket_starts, n_rows, metric, qs, qb, qd, top_k, per_table, W),
+        q_block, queries, q_buckets, q_detailed)
+
+
+def _retrieve_topk_unpacked(index: LshIndex, queries: torch.Tensor,
+                            corpus: torch.Tensor, top_k: int, per_table: int,
+                            filtered: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query block without slabs (the JAX `_retrieve_topk_block`): the
+    [q, L * per_table] window ids, a gather of their corpus rows, exact
+    cosine similarity or -distance, then the two-stage dedup top-k."""
+    n = index.n_rows
+    q_buckets, q_detailed = query_hashes(index, queries)
+    detailed = index.detailed if filtered else None
+    ids, _, _ = _window_ids(index.sorted_rows, index.bucket_starts, detailed, n,
+                            q_buckets, q_detailed if detailed is not None else None,
+                            per_table)
+    valid = ids < n
+    cand = corpus[torch.clamp(ids, max=n - 1).long()]             # [q, m, d]
+    qv = queries.to(cand.dtype)
+    if index.metric == "cosine":
+        dots = torch.einsum("qmd,qd->qm", cand, qv)
+        cn = torch.sqrt(torch.sum(cand * cand, dim=2))
+        qn = torch.sqrt(torch.sum(qv * qv, dim=1))
+        score = dots / torch.clamp(cn * qn[:, None], min=1e-30)
+    else:
+        diff = cand - qv[:, None, :]
+        score = -torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2), min=0.0))
+    score = torch.where(valid, score, float("-inf"))
+    return _stage_dedup(score, ids, n, index.sorted_rows.shape[0] * top_k, top_k)
+
+
 def retrieve_topk(
     index: LshIndex,
     queries: torch.Tensor,   # [q, d]
@@ -693,27 +962,31 @@ def retrieve_topk(
     int8_rerank: bool = True,
     stage1_width: int = 0,
     stage1_per_table: int = 0,
+    q_block: int = 256,
+    block_rows: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """End-to-end retrieval: bucket windows -> scores -> dedup top-k.
-
-    Takes the JAX package's kernel branches under its own conditions
-    (index.py:1066-1134, the kernel always enabled):
-    - augmented euclidean slabs: `packed_retrieve_pallas_euclid` (window at
-      the query's fingerprint run when `filtered`), 2x over-fetch and an
-      exact rerank, or the dequantized ranks with int8_rerank=False;
-    - packed cosine slabs with d % 128 == 0 and n_pad >= per_table + 160:
-      `retrieve_topk_pallas` in production mode.
-    JAX's q_block streaming is not needed (queries are independent).
-    Every other branch of the JAX function is not ported yet and raises.
-    stage1_width / stage1_per_table apply to the cosine branch only.
+    """End-to-end retrieval: bucket windows -> scores -> dedup top-k, on
+    the JAX package's branches (index.py:1066-1154, the kernel enabled):
+    - no slabs: the unpacked gather path, in query blocks of q_block;
+    - augmented euclidean slabs: `packed_retrieve_pallas_euclid` (K1;
+      window at the query's fingerprint run when `filtered`), 2x
+      over-fetch and an exact rerank, or the dequantized ranks with
+      int8_rerank=False;
+    - cosine slabs without per-row scales, d % 128 == 0 and n_pad >=
+      per_table + 160: `retrieve_topk_pallas` (K1) in production mode;
+    - every other packed layout (per-row int8, unaugmented euclidean with
+      `packed_sqnorm`, other cosine shapes): `packed_retrieve_core`.
+    Quantized slabs over-fetch 4x (min(4 top_k, L top_k)) and rerank
+    exactly unless int8_rerank=False on a global-scale index, which
+    dequantizes the raw-dot scores instead.  stage1_width /
+    stage1_per_table apply to the kernel's cosine branch only.
 
     -> (scores [q, top_k] descending, row ids [q, top_k], -1 pad): cosine
     similarity or negated euclidean distance, nearest first."""
     if index.packed is None:
-        raise NotImplementedError(
-            "unpacked retrieval (_retrieve_topk_block) is not ported yet "
-            "(ROADMAP Queue 1 item 4); pack the index first"
-        )
+        return _in_blocks(
+            lambda qs: _retrieve_topk_unpacked(index, qs, corpus, top_k, per_table,
+                                               filtered), q_block, queries)
     if index.packed_aug_scale is not None:
         q_buckets, q_detailed = query_hashes(index, queries)
         core_k = 2 * top_k if int8_rerank else top_k
@@ -727,17 +1000,29 @@ def retrieve_topk(
         if not int8_rerank:
             return s, ids
         return rerank_exact(corpus, index.metric, queries, ids, top_k)
-    if index.metric != "cosine":
-        raise NotImplementedError(_CORE)
-    if index.packed.shape[-1] % 128 or index.packed.shape[1] < per_table + 160:
-        raise NotImplementedError(
-            "this shape takes the JAX package's packed_retrieve_core, which "
-            "is not ported yet (ROADMAP Queue 1 item 4)"
+    if (index.metric == "cosine" and index.packed_scale is None
+            and index.packed.shape[-1] % 128 == 0
+            and index.packed.shape[1] >= per_table + 160):
+        return retrieve_topk_pallas(
+            index, queries, corpus, top_k, per_table, int8_rerank=int8_rerank,
+            stage1_width=stage1_width, stage1_per_table=stage1_per_table,
         )
-    return retrieve_topk_pallas(
-        index, queries, corpus, top_k, per_table, int8_rerank=int8_rerank,
-        stage1_width=stage1_width, stage1_per_table=stage1_per_table,
+    quantized = not index.packed.dtype.is_floating_point
+    scale_free = quantized and not int8_rerank and index.packed_gscale is not None
+    core_k = (min(4 * top_k, index.sorted_rows.shape[0] * top_k)
+              if quantized and not scale_free else top_k)
+    q_buckets, q_detailed = query_hashes(index, queries)
+    s, ids = packed_retrieve_core(
+        index.packed, index.packed_rows, index.packed_sqnorm,
+        index.packed_detailed if filtered else None, index.bucket_starts,
+        index.n_rows, index.metric, queries, q_buckets, q_detailed, core_k,
+        per_table, block_rows, packed_scale=index.packed_scale, q_block=q_block,
     )
+    if scale_free:
+        return s * index.packed_gscale, ids
+    if not quantized:
+        return s, ids
+    return rerank_exact(corpus, index.metric, queries, ids, top_k)
 
 
 def pack_dtype(name: str) -> torch.dtype:

@@ -1,10 +1,21 @@
 """Top-k primitives.
 
-`torch.topk` returns values and the permutation indexes in one op; gathering
-any payload by index replaces the reference's recursive co-sort of a
-similarity array with its neighbour array (reference
-lib/crypto_rec.hpp:234-277).  Ties may come back in another order than
-JAX's `lax.top_k` (lowest index first).
+The selection returns values and the permutation indexes in one op;
+gathering any payload by index replaces the reference's recursive co-sort
+of a similarity array with its neighbour array (reference
+lib/crypto_rec.hpp:234-277).
+
+Equal values come back lowest index first, as JAX's `lax.top_k` returns
+them.  `torch.topk` promises no order among equal values (on CUDA it
+differs from the CPU's), so the selection is a stable descending sort cut
+to k: ratings on a few coins tie often (identical users, users with one
+tweet), and the tie order decides which neighbours and coins are picked.
+Values order as that sort orders them on both devices: NaN first, +0.0
+and -0.0 equal (`lax.top_k` on the CPU puts +0.0 first).  The sort costs
+about what `torch.topk` does where the row is short or k a large share of
+it, and several times more for a few winners of a long row;
+tools/chip_probes/topk_select.py times it at every caller's shape beside
+`torch.topk` and the tie-exact selections that were slower.
 
 The masked forms take k above the axis length: the reference keeps every
 candidate when there are fewer than P (get_P_closest truncates only when
@@ -23,17 +34,19 @@ NEG_INF = float("-inf")
 
 
 def topk_desc(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Descending top-k along the last axis -> (values, indices)."""
-    return torch.topk(values, k, dim=-1)
+    """Descending top-k along the last axis -> (values, indices), equal
+    values lowest index first."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def _topk_padded(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """torch.topk over the last axis for any k: slots past the axis length
+    """topk_desc over the last axis for any k: slots past the axis length
     hold -inf at index 0."""
     m = values.shape[-1]
+    vals, idx = topk_desc(values, k)
     if k <= m:
-        return torch.topk(values, k, dim=-1)
-    vals, idx = torch.topk(values, m, dim=-1)
+        return vals, idx
     return (torch.nn.functional.pad(vals, (0, k - m), value=NEG_INF),
             torch.nn.functional.pad(idx, (0, k - m), value=0))
 

@@ -368,3 +368,85 @@ def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
     }[kernel]
     with pytest.raises(ValueError, match="device"):
         call()
+
+
+def test_tile_kernel_at_the_streamed_chunk_geometry(cuda):
+    """K1 on one streamed chunk's slab: int8 [4, chunk_pad, 128] built by
+    build_streamed_index's host build, cosine windows of 256 (win 384),
+    every window against the plain version."""
+    from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
+    from crypto_rec_tpu_torch.models.lsh.streamed import build_streamed_index
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(400_000, 128, generator=g)
+    sidx = build_streamed_index(torch.Generator().manual_seed(4),
+                                lambda ci: x[ci * 200_000:(ci + 1) * 200_000].numpy(),
+                                400_000, 128, 11, 4, 2)
+    slab = sidx.slabs[0].to(cuda)
+    starts = sidx.starts[0].to(cuda)
+    qs = torch.nn.functional.normalize(torch.randn(3000, 128, generator=g), dim=1).to(cuda)
+    qb = CosineLsh(torch.from_numpy(sidx.proj).to(cuda), 11, 4).bucket_ids(qs)
+    s0, sizes = _window_offsets(starts, qb, 256)
+    for mask in (False, True):
+        dk, ak = slab_window_dots(slab, s0, sizes, qs, 256, mask=mask)
+        dp, ap = slab_window_dots_plain(slab, s0, sizes, qs, 256, mask=mask)
+        assert torch.equal(ak, ap)
+        fin = torch.isfinite(dp)
+        assert torch.equal(fin, torch.isfinite(dk))
+        torch.testing.assert_close(dk[fin], dp[fin], rtol=1e-5, atol=1e-4)
+
+
+def test_topk_ties_go_to_the_lowest_index_on_cuda(cuda):
+    """ops/topk on CUDA returns equal values lowest index first, as
+    lax.top_k does (the CPU test against JAX is tests/test_torch_topk.py),
+    with NaN first and +0.0 and -0.0 equal: the same indices and value
+    bits as on the CPU."""
+    from crypto_rec_tpu_torch.ops import topk
+
+    def bits(t):
+        return t.cpu().view(torch.int32)
+
+    g = torch.Generator().manual_seed(2)
+    levels = torch.tensor([-1.0, -0.0, 0.0, 1.0, float("nan"), float("inf")])
+    cases = []
+    for m in (3000, 6000):
+        v = levels[torch.randint(0, len(levels), (512, m), generator=g)]
+        v[:256] = torch.rand(256, m, generator=g)     # rows without ties
+        cases += [(v, torch.rand(512, m, generator=g) < 0.8, k) for k in (1, 20, m - 1)]
+    for v, mask, k in cases:
+        want = topk.topk_desc(v, k)
+        got = topk.topk_desc(v.to(cuda), k)
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(bits(got[0]), bits(want[0]))
+        wm = topk.masked_topk_desc(v, mask, k)
+        gm = topk.masked_topk_desc(v.to(cuda), mask.to(cuda), k)
+        assert torch.equal(bits(gm[0]), bits(wm[0]))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(gm[1:], wm[1:]))
+        assert torch.equal(topk.topn_indices(v.to(cuda), mask.to(cuda), k).cpu(),
+                           topk.topn_indices(v, mask, k))
+
+
+def test_streamed_pass_overlaps_copy_and_compute(cuda):
+    """One streamed pass with prefetch: the copy stream's chunk copies run
+    while the compute stream retrieves (overlap_ms > 0, CUDA events), and
+    the ids equal a pass without prefetch; K1 and K2 launch."""
+    from crypto_rec_tpu_torch.models.lsh.streamed import (
+        build_streamed_index, streamed_retrieve_topk,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2_000_000, 128, generator=g)
+    cr = 500_000
+    sidx = build_streamed_index(torch.Generator().manual_seed(6),
+                                lambda ci: x[ci * cr:(ci + 1) * cr].numpy(),
+                                2_000_000, 128, 12, 4, 4)
+    qs = x[:4096].to(cuda)
+    streamed_retrieve_topk(sidx, qs, top_k=10, per_table=256)          # warm
+    k1, k2 = slab_window_dots.launches, signproj_bucket_ids.launches
+    stats = {}
+    a = streamed_retrieve_topk(sidx, qs, top_k=10, per_table=256, stats=stats)
+    assert slab_window_dots.launches - k1 == 4 and signproj_bucket_ids.launches - k2 == 1
+    b = streamed_retrieve_topk(sidx, qs, top_k=10, per_table=256, prefetch=False)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+    assert stats["overlap_ms"] > 0 and stats["copy_ms"] > 0, stats
+    assert (a[1][:, 0].cpu() == torch.arange(4096)).float().mean() > 0.99

@@ -249,19 +249,29 @@ def test_build_multicube_refuses_differing_scales(data, monkeypatch):
 
 
 def test_unported_cube_branches_raise(data):
-    """Outside the kernel branch the JAX function takes packed_retrieve_core
-    (not ported: item 4); augmented slabs there are an error in JAX too."""
-    jc, pc = data["cubes"]["cosine"]
-    pp = port_cube.pack_cube(pc, data["X"], dtype=torch.int8, pad=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_cube.cube_retrieve_topk(pp, data["QS"], data["X"], top_k=TOP, probes=6)
+    """Outside the kernel branch the cube takes packed_retrieve_core with
+    the probes as windows (probes % 8 != 0, per-row int8, unaugmented
+    euclidean): the port now matches JAX there; augmented slabs there are
+    an error in both packages; JAX's per-row archives load."""
+    for metric in ("cosine", "euclidean"):
+        jc, pc = data["cubes"][metric]
+        jp = jax_cube.pack_cube(jc, jnp.asarray(data["x"]), dtype=jnp.int8, pad=1024)
+        pp = port_cube.hypercube_from_numpy(*cube_handover(jp), CPU)
+        want = jax_cube.cube_retrieve_topk(jp, jnp.asarray(data["qs"]),
+                                           jnp.asarray(data["x"]), top_k=TOP, probes=6)
+        got = port_cube.cube_retrieve_topk(pp, data["QS"], data["X"], top_k=TOP, probes=6)
+        _assert_topk(metric, want, got, data["qs"])
+        own = port_cube.pack_cube(pc, data["X"], dtype=torch.int8, pad=1024)
+        assert (own.packed_scale is None) == (metric == "cosine")
+        assert (own.packed_sqnorm is None) == (metric == "cosine")
     _, pe = data["cubes"]["euclidean"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_cube.pack_cube(pe, data["X"], dtype=torch.int8)
     pa = port_cube.pack_cube(pe, data["X"], dtype=torch.int8, pad=1024, augment=True)
     with pytest.raises(ValueError, match="kernel-only"):
         port_cube.cube_retrieve_topk(pa, data["QS"], data["X"], top_k=TOP, probes=6)
+    jc, _ = data["cubes"]["cosine"]
     jp = jax_cube.pack_cube(jc, jnp.asarray(data["x"]), dtype=jnp.int8, pad=1024,
                             scale_mode="row")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_cube.hypercube_from_numpy(*cube_handover(jp), CPU)
+    got = port_cube.hypercube_from_numpy(*cube_handover(jp), CPU)
+    np.testing.assert_array_equal(got.packed_scale.numpy(), np.asarray(jp.packed_scale))
+
+

@@ -128,13 +128,22 @@ def test_checkpoint_port_to_jax_round_trip(built, tmp_path):
 
 
 def test_per_row_int8_archive_is_refused(built):
-    """Per-row int8 slabs are not ported yet: loading them raises instead of
-    serving a path the port does not have."""
+    """Per-row int8 slabs, refused before the port had packed_retrieve_core,
+    now load bit for bit and serve JAX's top-k through the core and the
+    exact rerank."""
     x, jidx, _ = built
     jp = jax_index.pack_index(jidx, jnp.asarray(x), dtype=jnp.int8, pad=1024,
                               scale_mode="row")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_index.index_from_numpy(*handover(jp), torch.device("cpu"))
+    got = port_index.index_from_numpy(*handover(jp), torch.device("cpu"))
+    for f in ("packed", "packed_rows", "packed_scale"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(jp, f)))
+    assert got.packed_gscale is None
+    qs = x[:16] + 0.05 * np.random.default_rng(2).normal(size=(16, D)).astype(np.float32)
+    want = jax_index.retrieve_topk(jp, jnp.asarray(qs), jnp.asarray(x), top_k=10,
+                                   per_table=200)
+    res = port_index.retrieve_topk(got, torch.from_numpy(qs), torch.from_numpy(x),
+                                   top_k=10, per_table=200)
+    assert_topk_match(*want, *res, rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

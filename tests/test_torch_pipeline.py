@@ -178,3 +178,70 @@ def test_p_header_above_the_virtual_user_count(tmp_path, capsys):
     assert _structure(text, _coin_names((tmp_path,)))[0] == HEADERS
     with pytest.raises(ValueError, match="top_k"):
         jax_main(["-d", tweets, "-o", str(tmp_path / "jax.txt"), "-c", conf])
+
+
+@pytest.fixture(scope="module")
+def coins15(tmp_path_factory):
+    out = tmp_path_factory.mktemp("coins15")
+    tweets, conf = write_synthetic_dataset(str(out), n_users=80, n_tweets=600,
+                                           n_coins=15, seed=6)
+    return out, tweets, conf
+
+
+def test_fused_engine_on_the_programs_15_coin_matrix(coins15, monkeypatch, capsys):
+    """`main --engine fused` on the program's own matrix (d = 15, not a
+    multiple of 128): the LSH phases retrieve through packed_retrieve_core,
+    and the file has the program's four sections."""
+    from crypto_rec_tpu_torch.models.lsh import index as port_index
+
+    shapes = []
+    core = port_index.packed_retrieve_core
+
+    def spy(*a, **kw):
+        shapes.append(tuple(a[0].shape))
+        return core(*a, **kw)
+
+    monkeypatch.setattr(port_index, "packed_retrieve_core", spy)
+    text, summary = _run(port_main.main, coins15, "fused.txt", capsys, "--engine", "fused",
+                         "--device", "cpu")
+    assert len(shapes) == 2 and all(s[2] == 15 for s in shapes)
+    assert _structure(text, _coin_names(coins15))[0] == HEADERS
+    assert summary["n_users"] > 0
+
+
+def test_lsh_phase_fused_at_d15_matches_jax(coins15):
+    """Phase A's fused engine at d = 15 on JAX's own slabs: JAX's lsh_phase
+    (its XLA core on the CPU) against the port's (packed_retrieve_core),
+    recommendations within rtol 1e-5, top-n equal away from 1e-6 ties."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from crypto_rec_tpu.config import RecConfig as JaxRecConfig
+    from crypto_rec_tpu.io.native import score_tweets_native as jax_native
+    from crypto_rec_tpu.io.users import build_user_matrix as jax_users
+    from crypto_rec_tpu.models.rec import engine as jax_engine
+    from crypto_rec_tpu.models.rec import pipeline as jax_pipeline
+    from crypto_rec_tpu_torch.config import RecConfig
+    from crypto_rec_tpu_torch.models.lsh import index as port_index
+    from crypto_rec_tpu_torch.models.rec import engine as port_engine
+
+    from _torch_parity import assert_recs_match, handover
+
+    out_dir = coins15[0]
+    um = jax_users(jax_native(coins15[1], f"{out_dir}/lexicon.tsv",
+                              f"{out_dir}/coins.tsv", "\t"))
+    cfg = dict(k=3, L=4, engine="fused", pack_dtype="bfloat16", candidate_budget=32)
+    jset = jax_engine.RatingSet(*(jnp.asarray(a) for a in (um.ratings, um.known, um.mean)))
+    jcache = {}
+    want = jax_pipeline.lsh_phase(jax.random.PRNGKey(8), jset, jset, JaxRecConfig(**cfg),
+                                  top_n=5, top_p=4, index_cache=jcache)
+    (jp,) = jcache.values()
+    assert jp.packed.shape[-1] == 15
+    cache = {(8, "users"): port_index.index_from_numpy(*handover(jp), torch.device("cpu"))}
+    pset = port_engine.RatingSet.from_user_matrix(um, torch.device("cpu"))
+    got = port_pipeline.lsh_phase(8, pset, pset, RecConfig(**cfg), top_n=5, top_p=4,
+                                  index_cache=cache, index_token="users")
+    assert_recs_match(want, got)
+    np.testing.assert_allclose(got.sims.numpy(), np.asarray(want.sims), rtol=1e-5,
+                               atol=1e-5)

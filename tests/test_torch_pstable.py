@@ -264,17 +264,30 @@ def test_window_offsets_with_shared_row_and_salt():
 
 
 def test_unported_euclidean_layouts_raise(data):
-    """Unaugmented euclidean slabs (per-row int8 or the sqnorm plane) serve
-    only packed_retrieve_core, which is not ported: refused with the item."""
+    """Unaugmented euclidean slabs (per-row int8, or f32 with the sqnorm
+    plane), refused before the port had packed_retrieve_core, now load,
+    pack and serve as JAX's do (tests/test_torch_retrieve_core.py covers
+    the core layout by layout)."""
     jp = jax_index.pack_index(data["jidx"], jnp.asarray(data["x"]), dtype=jnp.float32,
                               pad=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_index.index_from_numpy(*handover(jp), CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_index.pack_index(data["pidx"], torch.from_numpy(data["x"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        port_index.retrieve_topk(data["pidx"], torch.from_numpy(data["qs"]),
-                                 torch.from_numpy(data["x"]), top_k=10)
+    got = port_index.index_from_numpy(*handover(jp), CPU)
+    np.testing.assert_array_equal(got.packed_sqnorm.numpy(), np.asarray(jp.packed_sqnorm))
+    pp = port_index.pack_index(data["pidx"], torch.from_numpy(data["x"]), pad=1024)
+    assert pp.packed.dtype == torch.bfloat16 and pp.packed_sqnorm is not None
+    jr = jax_index.pack_index(data["jidx"], jnp.asarray(data["x"]), dtype=jnp.int8,
+                              pad=1024)
+    pr = port_index.pack_index(data["pidx"], torch.from_numpy(data["x"]),
+                               dtype=torch.int8, pad=1024)
+    np.testing.assert_allclose(pr.packed_scale.numpy(), np.asarray(jr.packed_scale),
+                               rtol=1e-6)
+    want = jax_index.retrieve_topk(jr, jnp.asarray(data["qs"]), jnp.asarray(data["x"]),
+                                   top_k=10, per_table=PT)
+    got = port_index.retrieve_topk(port_index.index_from_numpy(*handover(jr), CPU),
+                                   torch.from_numpy(data["qs"]),
+                                   torch.from_numpy(data["x"]), top_k=10, per_table=PT)
+    qmax = float((data["qs"] ** 2).sum(1).max())
+    assert_topk_match(-np.asarray(want[0]) ** 2, want[1], -got[0].numpy() ** 2, got[1],
+                      rtol=1e-5, atol=1e-5 * qmax)
 
 
 def test_port_built_euclidean_index_finds_planted_rows():
