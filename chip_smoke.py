@@ -7,8 +7,8 @@ Run from the repository root, with no arguments:
 
 It drives the port's serving paths at `bench.py`'s operating points on one
 2M x 128 planted corpus on the card, the recommender program and its
-10-fold CV, then the rest of the single-chip package, in twenty-one
-phases; each phase raises on failure:
+10-fold CV, the rest of the single-chip package and the sharded
+engines, in twenty-two phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -88,7 +88,18 @@ phases; each phase raises on failure:
  21. the CLIs, counted: cluster_cli on phase 13's 400,000 x 16
      embeddings (k = 6; lloyd, lsh and cube under kmeans; pam on the
      first 20,000 rows) with silhouettes, K2 on lsh and cube; serve_cli
-     recommend on phase 13's users saved with save_user_matrix (K2).
+     recommend on phase 13's users saved with save_user_matrix (K2);
+ 22. the sharded engines (parallel/) on phase 5's corpus and index point
+     under a NCCL process group of world size 1, mp = 1 and 4 logical
+     shards in the one process: build (K2), int8 pack,
+     sharded_retrieve_topk and sharded_recommend_scored (K1), counted;
+     recall@10 >= 0.99 and within 0.002 of phase 5's; at mp = 4 the four
+     shards' single-chip retrieve_topk merged with ops/topk must equal
+     the sharded result (ids exact, scores within 1e-5), K1 against its
+     plain version on shard 0's windows, sharded_recommend_csr (budget
+     256), routed_retrieve_topk (csr interior) and the dense
+     sharded_recommend at q = 512, each recall@10 >= 0.99, with their
+     stats.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -105,8 +116,9 @@ each path's counted run (phase 5: build, pack, retrieve and CF-score 8,192
 users; phases 9 and 10: build, pack and retrieve; phases 6-7 and 11 as
 wholes; phase 12: the six probes; phase 13: the program's run; phase 14:
 ten_fold_mae; phase 15: one candidate_ids_scored call; phases 17, 19
-and 21: the fused program, the streamed pass, each CLI run) and read just
-after it; each kernel of the path must show > 0.
+and 21: the fused program, the streamed pass, each CLI run; phase 22:
+build, pack, retrieve and scored CF at each mp) and read just after it;
+each kernel of the path must show > 0.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, bound and share of it, every
@@ -1678,6 +1690,211 @@ def phase21(ds):
     return res
 
 
+# phase 22: the sharded engines (parallel/) on phase 5's corpus and index
+# point, under a NCCL process group of world size 1; each mp shard is a
+# logical cell of the one process (500,000 rows a shard at mp = 4)
+SH = dict(mps=(1, 4), q=8192, budget=256, dense_q=512, routed_budget=512, floor=0.99,
+          drift=0.002)
+BACKEND = "nccl"
+
+
+def _merge_in_shard_order(parts, top_k):
+    """[(scores [q, k], global ids [q, k])] per shard, shard order -> the
+    ops/topk merge of their concatenation."""
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    s = torch.cat([p[0] for p in parts], dim=1)
+    i = torch.cat([p[1] for p in parts], dim=1)
+    v, pos = topk_desc(s, top_k)
+    ids = torch.gather(i, 1, pos)
+    return v, torch.where(v > float("-inf"), ids, -1)
+
+
+def phase22(corpus, queries, true_idx, q_known, q_mean, single_recall, single_qps):
+    """The sharded engines at full width on the card, under an initialized
+    NCCL group of world size 1: for mp = 1 and 4 logical shards, build,
+    int8 pack, sharded_retrieve_topk and sharded_recommend_scored, counted
+    (K1 and K2 must run); at mp = 4 the composition check (the four shards'
+    single-chip retrieve_topk merged with ops/topk equals the sharded
+    result), K1 against its plain version on one shard's windows,
+    sharded_recommend_csr, routed_retrieve_topk (csr interior) and the
+    dense sharded_recommend at q = 512.  Every engine's neighbour recall@10
+    >= 0.99, the retrieval and the scored engine within 0.002 of phase 5's."""
+    import torch.distributed as dist
+
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, candidate_mask, query_hashes, retrieve_topk,
+    )
+    from crypto_rec_tpu_torch.models.rec.engine import RatingSet
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+    from crypto_rec_tpu_torch.parallel.mesh import make_mesh
+    from crypto_rec_tpu_torch.parallel.routing import routed_retrieve_topk
+    from crypto_rec_tpu_torch.parallel.sharded import shard_rating_set, sharded_recommend
+    from crypto_rec_tpu_torch.parallel.sharded_index import (
+        build_sharded_index, pack_sharded_index, shard_corpus, shard_view,
+        sharded_recommend_csr, sharded_recommend_scored, sharded_retrieve_topk,
+    )
+
+    dev = corpus.device
+    q = SH["q"]
+    qs, truth = queries[:q], true_idx[:q]
+    kq = torch.Generator(device=dev).manual_seed(SEED + 11)      # phase 5's ratings
+    n_known = torch.rand(N, D, generator=kq, device=dev) < 0.6
+    n_mean = (corpus * n_known).sum(1) / n_known.sum(1).clamp(min=1)
+    qr, qk, qm = qs, q_known[:q], q_mean[:q]
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(BACKEND, init_method=f"file://{tmp.name}/store", world_size=1,
+                            rank=0, device_id=dev if dev.type == "cuda" else None)
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(backend=dist.get_backend(), world_size=dist.get_world_size())
+    log(f"phase 22 process group: {res['backend']}, world size {res['world_size']}")
+    try:
+        for mp in SH["mps"]:
+            mesh = make_mesh((1, mp), device=dev)
+            pc = shard_corpus(mesh, corpus)
+            nr, nm = pc, shard_corpus(mesh, n_mean)
+            zero_counts()
+            t0 = time.perf_counter()
+            idx = build_sharded_index(mesh, gen(SEED + 1), pc, "cosine", K, L)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pidx = pack_sharded_index(mesh, idx, pc, dtype=torch.int8)
+            torch.cuda.synchronize()
+            t_pack = time.perf_counter() - t0
+
+            def retrieve():
+                return sharded_retrieve_topk(mesh, pidx, qs, pc, budget=PER_TABLE,
+                                             top_k=TOP_P, per_table=PER_TABLE,
+                                             int8_rerank=False)
+
+            def scored():
+                return sharded_recommend_scored(mesh, pidx, qr, qk, qm, nr, nm, top_p=TOP_P,
+                                                top_n=TOP_N, per_table=PER_TABLE)
+
+            vals, ids = retrieve()
+            out = scored()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
+                raise AssertionError(f"sharded mp={mp}: a kernel did not run: {launches}")
+            r_ret = recall_at_k(ids[:, :TOP_K], truth)
+            r_sc = recall_at_k(out[4][:, :TOP_K], truth)
+            if tuple(out[0].shape) != (q, D) or not bool(torch.isfinite(out[0]).all()):
+                raise AssertionError(f"sharded mp={mp}: scored predictions malformed")
+            t_ret = wall_ms(retrieve, reps=3)
+            t_sc = wall_ms(scored, reps=3)
+            st = {k: (float(v) if k == "ici_bytes_per_query" else int(v))
+                  for k, v in out[5].items()}
+            e = dict(build_s=t_build, pack_s=t_pack, launches=launches,
+                     retrieval_ms=t_ret, retrieval_qps=q / t_ret * 1e3, retrieval_recall=r_ret,
+                     scored_ms=t_sc, scored_users_per_s=q / t_sc * 1e3, scored_recall=r_sc,
+                     scored_stats=st)
+            log(f"phase 22 mp={mp} ({N // mp} rows a shard, int8, k={K} L={L}, window "
+                f"{PER_TABLE}, q={q}): build {t_build:.3f} s, pack {t_pack:.3f} s; "
+                f"retrieval {t_ret:.3f} ms = {e['retrieval_qps']:,.0f} q/s (phase 5 single "
+                f"chip {single_qps:,.0f}), recall@{TOP_K} {r_ret:.4f}; scored CF "
+                f"{t_sc:.3f} ms = {e['scored_users_per_s']:,.0f} users/s, recall@{TOP_K} "
+                f"{r_sc:.4f} (phase 5 {single_recall:.4f}); stats {st}; launches {launches}")
+            for name, r in (("retrieval", r_ret), ("scored", r_sc)):
+                if r < SH["floor"] or abs(r - single_recall) > SH["drift"]:
+                    raise AssertionError(f"sharded mp={mp} {name}: recall {r:.4f} against "
+                                         f"floor {SH['floor']} and phase 5's {single_recall:.4f}")
+            if mp > 1:
+                # each shard's own tables and slabs through the single-chip path,
+                # ids offset, merged in shard order with ops/topk
+                parts = []
+                for p in range(mp):
+                    s, i = retrieve_topk(shard_view(pidx, p), qs, pc[p], top_k=TOP_P,
+                                         per_table=PER_TABLE, int8_rerank=False)
+                    parts.append((s, torch.where(i >= 0, i + p * (N // mp), -1)))
+                ms, mi = _merge_in_shard_order(parts, TOP_P)
+                n_diff = int((mi != ids).sum())
+                s_err = float((ms - vals).abs().max())
+                log(f"phase 22 composition (mp={mp}): {n_diff} ids differ from the merge of "
+                    f"the {mp} single-chip results, max |score diff| {s_err:.3g}")
+                if n_diff or s_err > 1e-5:
+                    raise AssertionError("sharded retrieval != merged single-chip shards")
+                e.update(composition_ids_differ=n_diff, composition_max_abs=s_err)
+                view = shard_view(pidx, 0)
+                qv = unit(qs)
+                qb, _ = query_hashes(view, qv)
+                s0, sizes = _window_offsets(view.bucket_starts, qb, PER_TABLE)
+                err = k1_check("sharded shard 0", view.packed, s0, sizes, qv, PER_TABLE, False)
+                k1 = k1_time(f"sharded mp={mp}, shard 0, q = {q}", view.packed, s0, sizes, qv,
+                             PER_TABLE, False, rounds=3)
+                k1["max_abs_err"] = err
+                k1_line(22, k1, err)
+                e["k1"] = k1
+                del s0, sizes, qb, parts
+                # the csr engine, counted apart
+                zero_counts()
+                t0 = time.perf_counter()
+                csr = sharded_recommend_csr(mesh, idx, qr, qk, qm, nr, nm, budget=SH["budget"],
+                                            top_p=TOP_P, top_n=TOP_N)
+                torch.cuda.synchronize()
+                t_csr = (time.perf_counter() - t0) * 1e3
+                r_csr = recall_at_k(csr[4][:, :TOP_K], truth)
+                cst = {k: (float(v) if k == "ici_bytes_per_query" else int(v))
+                       for k, v in csr[5].items()}
+                e.update(csr_ms=t_csr, csr_recall=r_csr, csr_stats=cst,
+                         csr_launches=read_counts())
+                log(f"phase 22 csr engine (mp={mp}, budget {SH['budget']}): {t_csr:.1f} ms "
+                    f"(first call), recall@{TOP_K} {r_csr:.4f}; stats {cst}")
+                del csr
+            del pidx
+            torch.cuda.empty_cache()
+            res[f"mp{mp}"] = e
+        if res["mp4"]["csr_recall"] < SH["floor"]:
+            raise AssertionError(f"csr engine recall {res['mp4']['csr_recall']:.4f}")
+        # the routed all-to-all exchange (csr interior) over the same hyperplanes
+        mesh = make_mesh((1, 4), device=dev)
+        single = build_index(gen(SEED + 1), corpus, "cosine", K, L)
+        zero_counts()
+        t0 = time.perf_counter()
+        rv, ri, rst = routed_retrieve_topk(mesh, single, qs, corpus, top_k=TOP_K,
+                                           budget=SH["routed_budget"])
+        torch.cuda.synchronize()
+        t_routed = (time.perf_counter() - t0) * 1e3
+        r_routed = recall_at_k(ri, truth)
+        check_topk(rv, ri, q, N, "routed")
+        log(f"phase 22 routed (mp=4, csr interior, budget {SH['routed_budget']}): "
+            f"{t_routed:.1f} ms with the partition, recall@{TOP_K} {r_routed:.4f}; "
+            f"dropped_requests {rst['dropped_requests']}, replication_factor "
+            f"{rst['replication_factor']}, ici_bytes_per_query {rst['ici_bytes_per_query']}, "
+            f"resident rows a shard {rst['resident_rows_per_shard']}; launches {read_counts()}")
+        res["routed"] = dict(ms=t_routed, recall=r_routed, stats=rst, launches=read_counts())
+        if r_routed < SH["floor"]:
+            raise AssertionError(f"routed recall {r_routed:.4f}")
+        # the dense-mask engine at q = 512 (its [q, n] mask and per-cell sims)
+        dq = SH["dense_q"]
+        mask = candidate_mask(single, qs[:dq])
+        del single, rv, ri
+        torch.cuda.empty_cache()
+        nset = shard_rating_set(mesh, RatingSet(ratings=corpus, known=n_known, mean=n_mean))
+        t0 = time.perf_counter()
+        rec = sharded_recommend(mesh, RatingSet(qr[:dq], qk[:dq], qm[:dq]), nset, mask,
+                                TOP_P, TOP_N)
+        torch.cuda.synchronize()
+        t_dense = (time.perf_counter() - t0) * 1e3
+        r_dense = recall_at_k(rec.neighbor_idx[:, :TOP_K], truth[:dq])
+        log(f"phase 22 dense sharded_recommend (mp=4, q={dq}, mask {list(mask.shape)}): "
+            f"{t_dense:.1f} ms, recall@{TOP_K} {r_dense:.4f}, has_neighbors "
+            f"{float(rec.has_neighbors.float().mean()):.4f}")
+        res["dense"] = dict(q=dq, ms=t_dense, recall=r_dense)
+        if r_dense < SH["floor"]:
+            raise AssertionError(f"dense engine recall {r_dense:.4f}")
+        del mask, rec, nset, n_known
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"phase 22 peak device memory {res['peak_bytes'] / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -1946,6 +2163,11 @@ def main() -> int:
     clis = phase21(ds)
     ds_dir.cleanup()
 
+    # ---- 22. the sharded engines, NCCL at world size 1 ----
+    sharded = phase22(corpus, queries_all, true_all, q_known, q_mean, e2e[BATCHES[0]]["recall"],
+                      BATCHES[0] / e2e[BATCHES[0]]["retrieval_ms"] * 1e3)
+    k1_sharded = sharded["mp4"].pop("k1")
+
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
 
@@ -1966,19 +2188,23 @@ def main() -> int:
                                 **{f"cluster_cli {a}": r["launches"]["signproj_bucket_ids"]
                                    for a, r in clis.items() if a != "recommend"},
                                 serve_recommend=clis["recommend"]["launches"][
-                                    "signproj_bucket_ids"])),
+                                    "signproj_bucket_ids"],
+                                **{f"sharded {m}": sharded[m]["launches"]["signproj_bucket_ids"]
+                                   for m in ("mp1", "mp4")})),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
              launches=launches["slab_window_dots"], max_abs_err=k1_err,
              **{key: k1_main[key] for key in row_keys}, card=CARD,
-             geometries=[k1_main] + k1_geoms + [streamed["k1"]],
+             geometries=[k1_main] + k1_geoms + [streamed["k1"], k1_sharded],
              path_launches=dict(path_launches("slab_window_dots"),
                                 scored_sets=scored["launches"]["slab_window_dots"],
                                 streamed=streamed["launches"]["slab_window_dots"],
                                 program_fused=program_fused["launches"]["slab_window_dots"],
                                 serve_unpacked=nonkernel["serve_unpacked"]["launches"][
-                                    "slab_window_dots"])),
+                                    "slab_window_dots"],
+                                **{f"sharded {m}": sharded[m]["launches"]["slab_window_dots"]
+                                   for m in ("mp1", "mp4")})),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
@@ -2024,7 +2250,8 @@ def main() -> int:
                       "serving_euclidean": serving, "probes": probes, "program": program,
                       "cv": cv, "scored_sets": scored, "card_vs_cpu": card_vs_cpu,
                       "program_fused": program_fused, "nonkernel_paths": nonkernel,
-                      "streamed": streamed, "ivf": ivf, "clis": clis, "wall_s": wall,
+                      "streamed": streamed, "ivf": ivf, "clis": clis, "sharded": sharded,
+                      "wall_s": wall,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,72 @@ def load_index(path: str, device) -> LshIndex:
         return index_from_numpy(meta, z, device)
 
 
+_SHARD_FIELDS = ("sorted_rows", "bucket_starts", "detailed") + PACKED_FIELDS
+
+
+def save_sharded_index(prefix: str, index, mesh=None) -> list:
+    """Per-shard save of a ShardedLshIndex: {prefix}.meta.npz (the hash
+    family, kind "sharded", version 3) and one {prefix}.shardNNN.npz per
+    shard, the JAX package's layout.  A rank writes only shards it holds;
+    with `mesh`, only those of its cells in dp row 0 (and the meta file
+    with cell (0, 0)), so dp replicas never write one file twice.
+    -> the paths written."""
+    fam = index.family
+    meta = {"version": _FORMAT_VERSION, "kind": "sharded", "metric": index.metric,
+            "n_buckets": index.n_buckets, "n_local": index.n_local,
+            "n_shards": index.n_shards, "packed_dtypes": {},
+            "has_detailed": index.detailed is not None, "k": fam.k, "L": fam.L}
+    fam_arrays = {"proj": _encode(fam.proj)[0]}
+    if index.metric != "cosine":
+        meta["w"] = fam.w
+        fam_arrays["offsets"] = _encode(fam.offsets)[0]
+        fam_arrays["weights"] = _encode(fam.weights)[0]
+    fields = {f: getattr(index, f) for f in _SHARD_FIELDS if getattr(index, f) is not None}
+    for f, t in fields.items():
+        if f in PACKED_FIELDS:
+            meta["packed_dtypes"][f] = _encode(t[:0])[1]
+    writes = set(index.shards) if mesh is None else {j for i, j in mesh.cells if i == 0}
+    paths = []
+    if 0 in writes:
+        paths.append(f"{prefix}.meta.npz")
+        np.savez_compressed(paths[0], meta=json.dumps(meta), **fam_arrays)
+    for p, s in enumerate(index.shards):
+        if s in writes:
+            paths.append(f"{prefix}.shard{s:03d}.npz")
+            np.savez_compressed(paths[-1], **{f: _encode(t[p])[0] for f, t in fields.items()})
+    return paths
+
+
+def load_sharded_index(prefix: str, mesh):
+    """Restore this rank's shards (`mesh.local_shards`) of a sharded
+    checkpoint written by either package onto the mesh's device; the
+    checkpoint's shard count must equal the mesh's mp axis."""
+    from crypto_rec_tpu_torch.models.lsh.index import array_getter, family_from_numpy
+    from crypto_rec_tpu_torch.parallel.sharded_index import ShardedLshIndex
+
+    with np.load(f"{prefix}.meta.npz", allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        if meta["version"] != _FORMAT_VERSION or meta.get("kind") != "sharded":
+            raise ValueError("not a sharded index checkpoint")
+        fam = family_from_numpy(meta, z, mesh.device)
+    S = meta["n_shards"]
+    if mesh.mp != S:
+        raise ValueError(f"checkpoint has {S} shards but mesh mp axis is {mesh.mp}")
+    blocks = {}
+    for s in mesh.local_shards:
+        with np.load(f"{prefix}.shard{s:03d}.npz", allow_pickle=False) as z:
+            get = array_getter(meta, z, mesh.device)
+            for f in z.keys():
+                blocks.setdefault(f, []).append(get(f))
+    fields = {f: torch.stack(b) for f, b in blocks.items()}
+    return ShardedLshIndex(
+        metric=meta["metric"], n_buckets=meta["n_buckets"], n_local=meta["n_local"],
+        n_shards=S, family=fam, shards=tuple(mesh.local_shards),
+        sorted_rows=fields["sorted_rows"], bucket_starts=fields["bucket_starts"],
+        detailed=fields.get("detailed"), **{f: fields.get(f) for f in PACKED_FIELDS},
+    )
+
+
 def save_user_matrix(path: str, um: UserMatrix) -> None:
     np.savez_compressed(path, ratings=um.ratings, known=um.known, mean=um.mean,
                         ids=np.asarray(um.ids, dtype=str))

@@ -450,3 +450,49 @@ def test_streamed_pass_overlaps_copy_and_compute(cuda):
     assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
     assert stats["overlap_ms"] > 0 and stats["copy_ms"] > 0, stats
     assert (a[1][:, 0].cpu() == torch.arange(4096)).float().mean() > 0.99
+
+
+def test_sharded_recommend_scored_on_the_card_matches_cpu(cuda):
+    """sharded_recommend_scored at mp = 4 logical shards on the card
+    against the same call on CPU tensors (one int8 index, built on the CPU
+    and copied over): K1 launches once a shard; neighbour ids equal away
+    from ties, sims within 1e-5, predictions within 1e-4."""
+    import dataclasses
+
+    from crypto_rec_tpu_torch.parallel.mesh import make_mesh
+    from crypto_rec_tpu_torch.parallel.sharded_index import (
+        build_sharded_index, pack_sharded_index, shard_corpus, sharded_recommend_scored,
+    )
+
+    from _torch_parity import assert_topk_match
+
+    g = torch.Generator().manual_seed(8)
+    n, c, q = 4 * 4096, 128, 96
+    x = torch.randn(n, c, generator=g)
+    mean = x.mean(1)
+    qr = x[:q] + 0.01 * torch.randn(q, c, generator=g)
+    qk = torch.rand(q, c, generator=g) < 0.6
+    qm = (qr * qk).sum(1) / qk.sum(1).clamp(min=1)
+    cpu_mesh, card_mesh = (make_mesh((1, 4), device=d) for d in ("cpu", cuda))
+    pc = shard_corpus(cpu_mesh, x)
+    idx = build_sharded_index(cpu_mesh, torch.Generator().manual_seed(9), pc, "cosine", 7, 4)
+    idx = pack_sharded_index(cpu_mesh, idx, pc, dtype=torch.int8, pad=1024)
+    moved = {f.name: getattr(idx, f.name).to(cuda) for f in dataclasses.fields(idx)
+             if isinstance(getattr(idx, f.name), torch.Tensor)}
+    fam = dataclasses.replace(idx.family, proj=idx.family.proj.to(cuda))
+    card_idx = dataclasses.replace(idx, family=fam, **moved)
+    args = (qr, qk, qm)
+    kw = dict(top_p=12, top_n=5, per_table=128)
+    want = sharded_recommend_scored(cpu_mesh, idx, *args, pc, shard_corpus(cpu_mesh, mean),
+                                    **kw)
+    before = slab_window_dots.launches
+    got = sharded_recommend_scored(card_mesh, card_idx, *(a.to(cuda) for a in args),
+                                   shard_corpus(card_mesh, x), shard_corpus(card_mesh, mean),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert slab_window_dots.launches == before + 4
+    assert_topk_match(want[3], want[4], got[3].cpu(), got[4].cpu(), rtol=1e-5, atol=1e-5)
+    assert torch.allclose(got[0].cpu(), want[0], atol=1e-4)
+    assert torch.equal(got[2].cpu(), want[2])
+    for k in ("scanned_total", "window_dropped_total"):
+        assert int(got[5][k]) == int(want[5][k])

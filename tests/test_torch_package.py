@@ -14,7 +14,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule, the probe entry points
-    (`experiments`) and the recommender program (`main`) included, loads no
+    (`experiments`), the recommender program (`main`) and the sharded
+    engines (`parallel`) included, loads no
     jax* or ml_dtypes module and nothing of the JAX package crypto_rec_tpu
     (run in a fresh interpreter: the test harness imports jax)."""
     code = (
@@ -52,6 +53,9 @@ def test_port_imports_no_jax():
     assert {f"crypto_rec_tpu_torch.{m}" for m in (
         "io.native", "models.cluster.driver", "cluster_cli", "serve_cli", "checkpoint",
         "models.lsh.streamed", "models.ivf", "utils.memory")} <= mods
+    # the sharded engines
+    assert {f"crypto_rec_tpu_torch.parallel.{m}" for m in (
+        "mesh", "sharded", "sharded_index", "routing")} <= mods
     assert bad.strip() == "[]", bad
 
 
