@@ -40,7 +40,9 @@ engines, in twenty-two phases; each phase raises on failure:
      q = 8,192 (P6: 32,768): the binned, int4, variant and blocked kernels
      and K1 without the mask, each against its plain version (dots within
      rtol 1e-5 / atol 1e-4, i8_dot and load_floor exact, binned winners
-     equal away from near-ties) on 2,048 queries and timed against it;
+     equal away from near-ties) on 2,048 queries and timed against it
+     (the binned and int4 kernels, tile-major on the tensor cores, also
+     against their previous row-wise bodies in the same rounds);
      the recall of each retrieval path against its plain path (within
      0.002); then one counted run of the six probes' run_* functions;
  13. the recommender program: `crypto_rec_tpu_torch.main -validate` (default
@@ -660,8 +662,8 @@ def _same_recall(label, ids_k, ids_p, truth):
 
 
 def _timed_pair(kern, plain, p, row_bytes, rowwise=None):
-    """Kernel and plain version (and K1's row-wise body) in alternating
-    rounds, with the bound of the kernel's call on the probe's windows:
+    """Kernel and plain version (and the kernel's previous row-wise body:
+    K1's, P3's, P6's) in alternating rounds, with the bound of the kernel's call on the probe's windows:
     covered slab rows x row_bytes, the queries and the kernel's outputs,
     2 d FLOP a window lane on bf16 tensor cores.  No one PyTorch call
     computes a probe kernel's function (a gather and an einsum are two):
@@ -686,7 +688,7 @@ def check_binned(p):
     where the bin's best and second-best dots differ by more than the
     tolerance; times at q = PQ; the recall of both retrieval paths."""
     from crypto_rec_tpu_torch.ops.kernels.binned import (
-        binned_dots, binned_dots_plain, binned_topk,
+        binned_dots, binned_dots_plain, binned_dots_rowwise, binned_topk,
     )
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         slab_window_dots_plain, window_len,
@@ -712,15 +714,17 @@ def check_binned(p):
         res = dict(geometry=f"{dname} nbins {nbins}, q = {PQ}", max_abs_err=err,
                    pos_near_ties=int((~clear).sum()),
                    **_timed_pair(lambda: binned_dots(*a), lambda: binned_dots_plain(*a),
-                                 p, p.packed.shape[2] * p.packed.element_size()))
+                                 p, p.packed.shape[2] * p.packed.element_size(),
+                                 rowwise=lambda: binned_dots_rowwise(*a)))
         win = window_len(p.per_table)
         ids = [binned_topk(*f(*a), p.packed_rows, win, p.n_rows, TOP_K)[1]
                for f in (binned_dots, binned_dots_plain)]
         res.update(_same_recall(f"P3 binned {dname} nbins {nbins}", *ids, p.true_idx))
         log(f"phase 12 binned_dots {dname} nbins {nbins}: max |err| {err:.3g} over "
             f"{CHECK_Q} queries, 0 winners differ ({res['pos_near_ties']} near-tie bins "
-            f"not compared); q={PQ}: kernel {res['ms']:.3f} ms, plain "
-            f"{res['plain_ms']:.3f} ms")
+            f"not compared); q={PQ}: tile-major {res['ms']:.3f} ms, row-wise "
+            f"{res['prev_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
         out.append(res)
     return out
 
@@ -730,6 +734,7 @@ def check_int4(p):
     recall of both retrieval paths."""
     from crypto_rec_tpu_torch.ops.kernels.int4slab import (
         repack_int4, slab_topk_int4, slab_window_dots_int4, slab_window_dots_int4_plain,
+        slab_window_dots_int4_rowwise,
     )
 
     p4 = repack_int4(p.packed)
@@ -743,12 +748,15 @@ def check_int4(p):
     res = dict(geometry=f"uint8 {list(p4.shape)}, q = {P6Q}", max_abs_err=err,
                **_timed_pair(lambda: slab_window_dots_int4(*a),
                              lambda: slab_window_dots_int4_plain(*a), p,
-                             p.packed.shape[2] / 2))
+                             p.packed.shape[2] / 2,
+                             rowwise=lambda: slab_window_dots_int4_rowwise(*a)))
     ids = [slab_topk_int4(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
            for f in (slab_window_dots_int4, slab_window_dots_int4_plain)]
     res.update(_same_recall("P6 int4", *ids, p.true_idx))
     log(f"phase 12 slab_window_dots_int4: max |err| {err:.3g} over {CHECK_Q} queries; "
-        f"q={P6Q}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+        f"q={P6Q}: tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({100 * res['share_of_bound']:.1f}%)")
     return res
 
 
@@ -2227,8 +2235,10 @@ def main() -> int:
         probe_row("slab_window_dots", "slabtile.cu",
                   "benchmarks/experiments/probe_r3_mask.py:114", probe_checks["k1"],
                   note="P1 dots_nomask, and the vpu modes of P2 and P4: K1 with mask off"),
-        probe_row("binned_dots", "binned.cu", "benchmarks/experiments/probe_r3_binned.py:98",
-                  probe_checks["binned"]),
+        probe_row("binned_dots", "probetile.cu",
+                  "benchmarks/experiments/probe_r3_binned.py:98", probe_checks["binned"],
+                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
+                       "(csrc/binned.cu) in the same rounds"),
         probe_row("slab_window_variant", "slabvariants.cu",
                   "benchmarks/experiments/probe_r3_split.py:156", variants[:3],
                   note="modes load_floor (zeros) and rounded_query (mxu_rep, mxu_tile)"),
@@ -2237,8 +2247,10 @@ def main() -> int:
                   note="mode i8_dot (mxu_i8)"),
         probe_row("blk_window_dots", "blkslab.cu", "benchmarks/experiments/probe_r4_blk.py:132",
                   probe_checks["blk"]),
-        probe_row("slab_window_dots_int4", "int4slab.cu",
-                  "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]]),
+        probe_row("slab_window_dots_int4", "probetile.cu",
+                  "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]],
+                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
+                       "(csrc/int4slab.cu) in the same rounds"),
     ]
     for r in (cv, program):
         r.pop("k1", None)

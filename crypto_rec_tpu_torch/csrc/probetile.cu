@@ -1,0 +1,424 @@
+// P3 (binned top-1) and P6 (int4 slabs), tile-major on the tensor cores.
+//
+// Replaces the TPU kernels benchmarks/experiments/probe_r3_binned.py
+// (binned_dots, pallas_call at :98; body make_binned_kernel :44-83) and
+// benchmarks/experiments/probe_r5_int4.py (slab_window_dots_int4,
+// pallas_call at :139; body _make_kernel_int4 :68-110).  The functions are
+// those of the row-wise bodies in binned.cu and int4slab.cu.
+//
+// What bounds them on the H100: the unique bytes.  Each slab row covered by
+// some window is needed once, but the row-wise bodies read every window
+// from memory: at the probe points P3 reads 5.4 GB of logical int8 windows
+// (10.7 GB bf16) against 1.86 GB (3.7 GB) of covered rows, and P6 10.7 GB
+// of packed windows against ~1.1 GB; P6 also unpacks every nibble once per
+// window (~10 windows a row at q = 32,768).  Reading a row once means
+// dotting it against every window that covers it: a matrix product, which
+// the tensor cores finish far under the byte bound.
+//
+// Design: K1's tile-major product (slabtile.cu) with the schedule found on
+// the device.  The wrapper only sorts the (query, table) pairs by first
+// slab row (ops/kernels/binned.py, int4slab.py): K1's torch work list of
+// ~25 small operations costs 0.3-0.9 ms of host dispatch at the probe
+// point on an H100 host (tools/chip_probes/binned_designs.py), more than
+// a third of the kernel.  Here `tile_bounds` gives each tile of RT slab
+// rows the range of sorted pairs whose windows meet it, and one block
+// takes one tile:
+// - it stages the tile's rows in shared memory as bf16, once, by cp.async:
+//   bf16 rows as they are; int8 rows, and P6's packed rows, as bytes into
+//   the tail of the tile's space, then upcast in place, each packed row
+//   unpacked into its two CSR rows, hi nibbles to the tile's first half and
+//   lo nibbles to its second (values -8..7 are exact in bf16);
+// - it walks its pairs in chunks of M = 16: each pair's f32 query split
+//   into three bf16 terms (split3), then 4 warps run mma.sync m16n8k16 with
+//   the tile's rows on the M side and the pairs on N in tiles of 8, so a
+//   chunk of <= 8 pairs (P3 has ~3 a tile) costs half the products of a
+//   full one; each 16-wide slice of d is summed from zero and added in f32,
+//   as in K1, so the dots keep K1's tolerance;
+// - the epilogue stages the chunk's dots in shared memory, over the query
+//   terms.  P6 writes each pair's lanes in the halves layout: two
+//   contiguous runs, hi lanes j and lo lanes win / 2 + j.  P3 never writes
+//   the dots: for each pair it reduces the run of window lanes the tile
+//   covers to one candidate per bin (the largest dot, the lowest lane on
+//   ties), and combines it into the query's [nbins] keys with one 64-bit
+//   atomicMax (the key below).  The keys start at zero and every flat lane
+//   belongs to exactly one tile, so each bin ends with its winner; a last
+//   pass decodes the keys.
+// Blocks are small (128 threads, 44 KB of shared memory at d <= 128), so
+// five share an SM and one block's loads overlap the others' work.
+
+#include "slabrow.cuh"
+#include "tilemma.cuh"
+
+// P3's combine key.
+//
+// A bin's candidates meet in one 64-bit key per (query, bin), combined
+// with atomicMax: the high word is the dot as an order-preserving unsigned
+// (sign bit set: all bits flipped; else the sign bit set), the low word
+// 0xFFFFFFFF - p for the candidate's flat lane p = t * win + lane.  The
+// largest dot wins, and among equal dots the lowest p, which within a bin
+// (p = r * nbins + bin) is the lowest row r: the TPU body's
+// min(where(b == max, r, rows)).  -0 enters as +0, so the two zeros tie as
+// they compare.  `bin_key` / `bin_unkey` in tests/test_torch_probe_tiles.py
+// state the same order in plain torch.
+
+namespace binkey {
+
+__device__ __forceinline__ unsigned long long bin_key(float v, int p) {
+  uint32_t u = __float_as_uint(v == 0.f ? 0.f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (uint32_t)p);
+}
+
+__device__ __forceinline__ void bin_put(unsigned long long* key, float v, int p) {
+  atomicMax(key, bin_key(v, p));
+}
+
+// keys [n] -> vals [n] f32, pos [n] int32
+static __global__ void bin_decode(const unsigned long long* __restrict__ keys,
+                                  float* __restrict__ vals, int32_t* __restrict__ pos,
+                                  long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long k = keys[i];
+  uint32_t u = (uint32_t)(k >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  vals[i] = __uint_as_float(u);
+  pos[i] = (int32_t)(0xFFFFFFFFu - (uint32_t)k);
+}
+
+static inline int launch_decode(const void* keys, void* vals, void* pos, long long n,
+                                cudaStream_t s) {
+  if (n <= 0) return (int)cudaSuccess;
+  const long long blocks = (n + 255) / 256;
+  bin_decode<<<(unsigned)blocks, 256, 0, s>>>((const unsigned long long*)keys,
+                                              (float*)vals, (int32_t*)pos, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace binkey
+
+namespace {
+
+using namespace slabrow;
+using namespace tilemma;
+
+constexpr int kThreads = 128;     // 4 warps along the tile's rows
+constexpr int kM = 16;            // pairs a chunk: one m16 tile
+
+// what a block stages and what its epilogue writes
+enum Kind { kBinI8 = 0, kBinBF16 = 1, kInt4 = 2 };
+
+struct Args {
+  const uint8_t* slab;       // [n_rows, d]: int8 / bf16 rows, or P6's packed bytes
+  const float* queries;      // [q, d] f32, 16-byte aligned
+  const int32_t* row0;       // [P] first slab rows, ascending
+  const long long* pair;     // [P] pair ids (query * T + table) in that order
+  const int32_t* bounds;     // [2, n_tiles]: each tile's first and end sorted pair
+  void* out;                 // P3: keys [q, nbins] u64, zeroed; P6: dots [P, win] f32
+  int P, n_tiles, T, win, span, d, n_rows, nbins;
+};
+
+// tile j's pairs are the sorted positions [lo_j, hi_j): lo_j the first row0
+// > j rt - span, hi_j the first row0 >= (j + 1) rt (`tile_ranges`
+// in tests/test_torch_probe_tiles.py states it in torch).  Sorted position i is lo_j
+// for the tiles j with row0[i - 1] + span <= j rt < row0[i] + span, and
+// hi_j for row0[i - 1] < (j + 1) rt <= row0[i]: a thread a position
+// writes those runs of j, which partition the tiles.
+__global__ void tile_bounds(const int32_t* __restrict__ row0, int P, int span, int rt,
+                            int n_tiles, int32_t* __restrict__ bounds) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > P) return;
+  const long long prev = i == 0 ? -(1LL << 40) : row0[i - 1];
+  const long long cur = i == P ? (1LL << 40) : row0[i];
+  auto ceil_div = [rt](long long x) {
+    return x >= 0 ? (x + rt - 1) / rt : -((-x) / rt);
+  };
+  auto floor_div = [rt](long long x) { return x >= 0 ? x / rt : -((-x + rt - 1) / rt); };
+  const long long lo_a = max(0LL, ceil_div(prev + span));
+  const long long lo_b = min((long long)n_tiles, ceil_div(cur + span));
+  for (long long j = lo_a; j < lo_b; ++j) bounds[j] = i;
+  const long long hi_a = max(0LL, floor_div(prev));
+  const long long hi_b = min((long long)n_tiles, floor_div(cur));
+  for (long long j = hi_a; j < hi_b; ++j) bounds[n_tiles + j] = i;
+}
+
+// bytes 0 and 1 (sel 0x4140) or 2 and 3 (sel 0x4342) of x, each a nibble
+// n ^ 8, as the bf16 pair ((n ^ 8) - 8): 0x4300 | m is bf16 128 + m
+__device__ __forceinline__ uint32_t nib_bf16x2(uint32_t x, uint32_t sel) {
+  const uint32_t u = __byte_perm(x, 0u, sel) | 0x43004300u;
+  const uint32_t c = 0x43084308u;                     // bf16 136, 136
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&u),
+                             *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// RT staged bf16 rows: 128 at d <= 128, 64 at d = 256 (32 KB either way)
+template <int KIND, int RT>
+__global__ void __launch_bounds__(kThreads, 5)
+probe_tile(Args a) {
+  constexpr int M = kM;
+  constexpr int kSR = KIND == kInt4 ? RT / 2 : RT;       // slab rows a tile holds
+  constexpr int kMaxD = RT == 128 ? 128 : 256;
+  constexpr int kLd = KIND == kBinBF16 ? 1 : kSR * kMaxD / 16 / kThreads;
+  constexpr int MR = RT / 64;                            // m16 tiles a warp
+  constexpr int OS = RT + 4;                             // o_s stride: conflict-free
+  const int lo = a.bounds[blockIdx.x], hi = a.bounds[a.n_tiles + blockIdx.x];
+  if (hi <= lo) return;
+  const int tile0 = blockIdx.x * kSR;
+  const int d = a.d, cpr = d / 8, c16 = d / 16;   // 16-byte chunks: bf16, bytes
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [RT][d]
+  __nv_bfloat16* a_s = b_s + RT * d;                                  // [3][M][d]
+  float* o_s = reinterpret_cast<float*>(a_s);                         // [M][OS]
+  int (*s_meta)[M] = reinterpret_cast<int (*)[M]>(                    // [2][M]
+      reinterpret_cast<uint8_t*>(a_s) + max(3 * M * d * 2, M * OS * 4));
+
+  // the tile's rows by cp.async, zero past the slab's end: bf16 rows
+  // straight to the tile, byte rows (int8, packed int4) to the tail of the
+  // tile's space, upcast in place once the first chunk's queries are staged
+  uint8_t* raw = smem_raw + RT * d * 2 - kSR * d;                     // [kSR][d] bytes
+  if (KIND == kBinBF16) {
+    for (int i = threadIdx.x; i < RT * cpr; i += kThreads) {
+      const int r = i / cpr, c = i % cpr;
+      const bool ok = tile0 + r < a.n_rows;
+      const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + c * 8) * 2 : a.slab;
+      cp_async16(b_s + swz(r, c, d), src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kSR * c16; i += kThreads) {
+      const int r = i / c16;
+      const bool ok = tile0 + r < a.n_rows;
+      const uint8_t* src = ok ? a.slab + (size_t)(tile0 + r) * d + (i % c16) * 16 : a.slab;
+      cp_async16(raw + i * 16, src, ok ? 16 : 0);
+    }
+  }
+
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int n_base = warp * (RT / 4);
+  const int mi = l >> 3, rr = l & 7, g = l >> 2, tig = l & 3;
+  constexpr int kSub = kThreads / M;                     // lanes a pair slot
+  const int slot = threadIdx.x / kSub, sub = threadIdx.x % kSub;
+  for (int c0 = lo; c0 < hi; c0 += M) {
+    const int cnt = min(M, hi - c0);
+    if (c0 != lo) __syncthreads();        // the last chunk's epilogue is done
+    // pair slot m and its kSub lanes: the slot's fields and
+    // its query's three bf16 terms; rows past cnt are never read into a
+    // written dot
+    if (slot < cnt) {
+      const int p = (int)__ldg(a.pair + c0 + slot);
+      if (sub == 0) s_meta[0][slot] = p;
+      if (sub == 1) s_meta[1][slot] = __ldg(a.row0 + c0 + slot);
+      const float4* q4 = reinterpret_cast<const float4*>(a.queries + (size_t)(p / a.T) * d);
+      for (int c = sub; c < cpr; c += kSub) {        // 8 elements a chunk
+        const float4 u = __ldg(q4 + 2 * c), w = __ldg(q4 + 2 * c + 1);
+        const float x[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+        uint32_t t[3][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h[2][3];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) split3(x[2 * e + k], h[k]);
+#pragma unroll
+          for (int term = 0; term < 3; ++term) t[term][e] = bf16x2(h[0][term], h[1][term]);
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+          *reinterpret_cast<uint4*>(a_s + term * M * d + swz(slot, c, d)) =
+              make_uint4(t[term][0], t[term][1], t[term][2], t[term][3]);
+      }
+    }
+    if (c0 == lo) {
+      cp_async_wait_all();
+      if (KIND != kBinBF16) {
+        // every thread's bytes are in; all are read before the bf16 rows
+        // overwrite them
+        __syncthreads();
+        uint4 v[kLd];
+#pragma unroll
+        for (int j = 0; j < kLd; ++j) {
+          const int i = threadIdx.x + j * kThreads;
+          v[j] = i < kSR * c16 ? reinterpret_cast<const uint4*>(raw)[i]
+                               : make_uint4(0, 0, 0, 0);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kLd; ++j) {
+          const int i = threadIdx.x + j * kThreads;
+          if (i >= kSR * c16) break;
+          const int r = i / c16, c = i % c16;
+          const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+          uint32_t o[2][8];                  // [hi, lo] (P6) or [row] (int8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (KIND == kInt4) {
+              const uint32_t x = w[e] ^ 0x88888888u;
+              const uint32_t hn = (x >> 4) & 0x0F0F0F0Fu, ln = x & 0x0F0F0F0Fu;
+              o[0][2 * e] = nib_bf16x2(hn, 0x4140);
+              o[0][2 * e + 1] = nib_bf16x2(hn, 0x4342);
+              o[1][2 * e] = nib_bf16x2(ln, 0x4140);
+              o[1][2 * e + 1] = nib_bf16x2(ln, 0x4342);
+            } else {
+              o[0][2 * e] = bf16x2(i8(w[e], 0), i8(w[e], 1));
+              o[0][2 * e + 1] = bf16x2(i8(w[e], 2), i8(w[e], 3));
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < (KIND == kInt4 ? 2 : 1); ++h) {
+            const int row = r + h * kSR;
+            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c, d)) =
+                make_uint4(o[h][0], o[h][1], o[h][2], o[h][3]);
+            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c + 1, d)) =
+                make_uint4(o[h][4], o[h][5], o[h][6], o[h][7]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // the chunk's RT x 16 dots with the slab rows on the mma's M side: a
+    // warp RT / 4 rows (MR m16 tiles) against the pairs in n8 tiles, one up
+    // to 8 pairs and two past; a pair's three query terms chain into one
+    // accumulator, each 16-wide slice summed from zero (hi, then mid and lo
+    // onto it) and added to the running dots in f32, as in K1
+    const int halves = cnt > 8 ? 2 : 1;
+    float acc[MR][2][4];
+#pragma unroll
+    for (int mr = 0; mr < MR; ++mr)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mr][h][e] = 0.f;
+    for (int kc = 0; kc < d / 16; ++kc) {
+      uint32_t af[MR][4], b[3][2][2];
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr)
+        ldmatrix_x4(af[mr], b_s + swz(n_base + mr * 16 + rr + (mi & 1) * 8,
+                                      2 * kc + (mi >> 1), d));
+#pragma unroll
+      for (int term = 0; term < 3; ++term) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, a_s + term * M * d + swz(rr + (mi >> 1) * 8, 2 * kc + (mi & 1), d));
+        b[term][0][0] = r4[0]; b[term][0][1] = r4[1];
+        b[term][1][0] = r4[2]; b[term][1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h >= halves) break;
+          float part[4];
+          mma_bf16_zero(part, af[mr], b[0][h][0], b[0][h][1]);
+          mma_bf16(part, af[mr], b[1][h][0], b[1][h][1]);
+          mma_bf16(part, af[mr], b[2][h][0], b[2][h][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mr][h][e] += part[e];
+        }
+    }
+    __syncthreads();                      // o_s overlays the query terms
+#pragma unroll
+    for (int mr = 0; mr < MR; ++mr)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= halves) break;
+        const int row = n_base + mr * 16 + g, m = h * 8 + 2 * tig;
+        o_s[m * OS + row] = acc[mr][h][0];
+        o_s[(m + 1) * OS + row] = acc[mr][h][1];
+        o_s[m * OS + row + 8] = acc[mr][h][2];
+        o_s[(m + 1) * OS + row + 8] = acc[mr][h][3];
+      }
+    __syncthreads();
+
+    // a warp a pair: the window lanes j = tile row - row0 in [0, span)
+    for (int m = warp; m < cnt; m += kThreads / 32) {
+      const int pid = s_meta[0][m], r0 = s_meta[1][m];
+      const int j_lo = max(0, tile0 - r0), j_hi = min(a.span, tile0 + kSR - r0);
+      const float* src = o_s + m * OS + r0 - tile0;      // src[j]: lane j's dot
+      if (KIND == kInt4) {
+        float* dst = static_cast<float*>(a.out) + (size_t)pid * a.win;
+        for (int j = j_lo + l; j < j_hi; j += 32) {
+          dst[j] = src[j];                     // hi nibble: CSR row aligned + 2j
+          dst[a.span + j] = src[kSR + j];      // lo nibble: CSR row aligned + 2j + 1
+        }
+      } else {
+        // flat lane p = t win + j, bin p % nbins: the run's lanes j, j +
+        // nbins, ... share a bin; a strict '>' keeps the lowest lane of a tie
+        const int qi = pid / a.T, base = (pid - qi * a.T) * a.win;
+        unsigned long long* keys = static_cast<unsigned long long*>(a.out) +
+                                   (size_t)qi * a.nbins;
+        const int first_end = min(j_hi, j_lo + a.nbins);
+        for (int j = j_lo + l; j < first_end; j += 32) {
+          float best = src[j];
+          int bj = j;
+          for (int j2 = j + a.nbins; j2 < j_hi; j2 += a.nbins) {
+            if (src[j2] > best) {
+              best = src[j2];
+              bj = j2;
+            }
+          }
+          binkey::bin_put(keys + (base + bj) % a.nbins, best, base + bj);
+        }
+      }
+    }
+  }
+}
+
+template <int KIND, int RT>
+int launch(const Args& a, int32_t* bounds, cudaStream_t stream) {
+  constexpr int kSR = KIND == kInt4 ? RT / 2 : RT;
+  if (a.n_tiles <= 0 || a.P <= 0) return (int)cudaSuccess;
+  tile_bounds<<<(a.P + 1 + 255) / 256, 256, 0, stream>>>(a.row0, a.P, a.span, kSR,
+                                                         a.n_tiles, bounds);
+  const int q_bytes = 3 * kM * a.d * 2, o_bytes = kM * (RT + 4) * 4;   // o_s over a_s
+  const size_t smem = (size_t)RT * a.d * 2 + (q_bytes > o_bytes ? q_bytes : o_bytes) +
+                      2 * kM * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_tile<KIND, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  probe_tile<KIND, RT><<<a.n_tiles, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// rt: the slab rows a tile holds, as the wrapper sized its bounds: 128 at
+// d <= 128, 64 at d = 256 (P6: half, in packed rows)
+template <int KIND>
+int launch_rt(const Args& a, int32_t* bounds, int rt, cudaStream_t s) {
+  const int sr = KIND == kInt4 ? rt * 2 : rt;          // staged bf16 rows
+  if (a.d <= 0 || a.d > 256 || a.d % 64 || sr != (a.d <= 128 ? 128 : 64))
+    return (int)cudaErrorInvalidValue;
+  return a.d <= 128 ? launch<KIND, 128>(a, bounds, s) : launch<KIND, 64>(a, bounds, s);
+}
+
+}  // namespace
+
+extern "C" int crt_binned_tile_dots(const void* slab, const void* queries,
+                                    const void* row0, const void* pair, void* bounds,
+                                    void* keys, void* vals, void* pos, int P, int q,
+                                    int T, int win, int d, int n_rows, int nbins,
+                                    int dtype, int rt, void* stream) {
+  if (rt <= 0 || nbins <= 0 || (T * win) % nbins || (dtype != kBF16 && dtype != kI8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n_keys = (long long)q * nbins;
+  cudaError_t err = cudaMemsetAsync(keys, 0, (size_t)n_keys * 8, s);
+  if (err != cudaSuccess) return (int)err;
+  Args a{(const uint8_t*)slab, (const float*)queries, (const int32_t*)row0,
+         (const long long*)pair, (const int32_t*)bounds, keys, P, (n_rows + rt - 1) / rt,
+         T, win, win, d, n_rows, nbins};
+  int32_t* b = (int32_t*)bounds;
+  const int rc = dtype == kI8 ? launch_rt<kBinI8>(a, b, rt, s)
+                               : launch_rt<kBinBF16>(a, b, rt, s);
+  if (rc != 0) return rc;
+  return binkey::launch_decode(keys, vals, pos, n_keys, s);
+}
+
+extern "C" int crt_int4_tile_dots(const void* slab4, const void* queries,
+                                  const void* row0, const void* pair, void* bounds,
+                                  void* dots, int P, int T, int win, int d, int n_rows,
+                                  int rt, void* stream) {
+  if (rt <= 0 || win % 2) return (int)cudaErrorInvalidValue;
+  Args a{(const uint8_t*)slab4, (const float*)queries, (const int32_t*)row0,
+         (const long long*)pair, (const int32_t*)bounds, dots, P, (n_rows + rt - 1) / rt,
+         T, win, win / 2, d, n_rows, 0};
+  return launch_rt<kInt4>(a, (int32_t*)bounds, rt, (cudaStream_t)stream);
+}

@@ -50,71 +50,18 @@
 // - Offsets into dots are 64-bit: q T win exceeds 2^31 on the euclidean
 //   MultiCube.
 
-#include <cuda_bf16.h>
-
 #include "slabrow.cuh"
+#include "tilemma.cuh"
 
 namespace {
 
 using namespace slabrow;
+using namespace tilemma;
 
 constexpr int kThreads = 256;     // 8 warps: 2 along the pairs, 4 along the rows
 constexpr int kM = 32;            // pairs per item (tensor-core path)
 constexpr int kMaxD = 256;
 constexpr int kF32RT = 32, kF32M = 32;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  const float z = 0.f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
-}
-
-// element offset of 16-byte chunk c of row r in a [rows][d] bf16 block
-__device__ __forceinline__ int swz(int r, int c, int d) {
-  return r * d + ((c ^ (r & 7)) << 3);
-}
-
-// q = hi + mid + lo, each term the bf16 rounding of what the ones before it
-// left (split_bf16x3 in ops/kernels/slabscore.py); the terms are returned
-// as the floats they equal, exact in bf16
-__device__ __forceinline__ void split3(float q, float (&t)[3]) {
-  t[0] = __bfloat162float(__float2bfloat16_rn(q));
-  const float r = q - t[0];
-  t[1] = __bfloat162float(__float2bfloat16_rn(r));
-  t[2] = __bfloat162float(__float2bfloat16_rn(r - t[1]));
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // the sorted pairs' fields in Args::meta, [kMeta][P] int32; the query of
 // pair p is p / T

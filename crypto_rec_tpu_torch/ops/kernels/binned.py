@@ -10,10 +10,19 @@ Contiguous CSR lanes fall in distinct bins, so a planted same-bucket run
 survives; copies of one row from two tables may share a bin, which dedup
 would have dropped anyway.
 
-A CUDA tensor launches the Hopper kernel in `csrc/binned.cu` (or raises);
-a CPU tensor runs `binned_dots_plain`, the bin-max of K1's plain dots.
-`retrieve_binned` is plain torch: window offsets, binned dots, each bin's
-flat lane mapped back to its table and CSR row, then the dedup top-k.
+A CUDA tensor launches the tile-major Hopper kernel in `csrc/probetile.cu`
+(or raises): K1's tensor-core product over tiles of the slab, each covered
+slab row read once, with the schedule found on the device from the pairs
+sorted by first row, and each tile's candidates combined into the query's
+bins with one 64-bit atomicMax on a key that orders by dot, then by the
+lowest row.  It takes int8 and bf16 slabs with d % 64 == 0 and d <= 256.
+A CPU tensor runs `binned_dots_plain`, the bin-max of K1's plain dots
+(any slab dtype, as the TPU probe casts to f32).  `binned_dots_rowwise`,
+the previous design, one block per query reading every window
+(`csrc/binned.cu`), stays compiled for side-by-side timing on the card;
+no probe path calls it.  `retrieve_binned` is plain torch: window
+offsets, binned dots, each bin's flat lane mapped back to its table and
+CSR row, then the dedup top-k.
 """
 
 from __future__ import annotations
@@ -24,9 +33,11 @@ import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    _DTYPE_CODE, _dedup_topk_pairs, _geometry, _window_offsets, check_row_slab,
-    lane_rows, slab_window_dots_plain, window_len,
+    _DTYPE_CODE, _check_tile_slab, _dedup_topk_pairs, _geometry, _window_offsets,
+    check_row_slab, lane_rows, probe_tile_rows, slab_window_dots_plain, window_len,
 )
+
+_TC_CODE = {t: _DTYPE_CODE[t] for t in (torch.int8, torch.bfloat16)}
 
 
 def _check_bins(T: int, win: int, nbins: int) -> None:
@@ -55,6 +66,24 @@ def binned_dots_plain(
     return vals, pos.to(torch.int32), aligned
 
 
+def _cuda_binned(packed, starts, queries, per_table, nbins):
+    """Checks and geometry of the tensor-core body -> (win, aligned, row0,
+    16-byte aligned f32 queries, keys / vals / pos outputs)."""
+    check_row_slab("binned_dots", packed, starts, queries, _TC_CODE)
+    _check_tile_slab(packed)
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    _check_bins(T, win, nbins)
+    qv = queries.float().contiguous()
+    if qv.data_ptr() % 16:
+        qv = qv.clone()
+    dev = packed.device
+    outs = (torch.empty(q, nbins, dtype=torch.int64, device=dev),
+            torch.empty(q, nbins, dtype=torch.float32, device=dev),
+            torch.empty(q, nbins, dtype=torch.int32, device=dev))
+    return win, aligned, row0.contiguous(), qv, outs
+
+
 def binned_dots(
     packed: torch.Tensor,
     starts: torch.Tensor,
@@ -66,10 +95,50 @@ def binned_dots(
     in [0, L * win) of each bin's winner, aligned window starts [q, L]
     int32, local to each table).  Arguments as `binned_dots_plain`.
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors (int8 or bf16 slabs,
+    d % 64 == 0, d <= 256) the tile-major Hopper kernel; the sort of the
+    pairs runs here on the device, inside the kernel's time."""
     if not packed.is_cuda:
         return binned_dots_plain(packed, starts, queries, per_table, nbins)
-    check_row_slab("binned_dots", packed, starts, queries, _DTYPE_CODE)
+    win, aligned, row0, qv, (keys, vals, pos) = _cuda_binned(
+        packed, starts, queries, per_table, nbins)
+    q, T = starts.shape
+    d = packed.shape[2]
+    if q == 0:
+        return vals, pos, aligned
+    rt = probe_tile_rows(d)
+    n_rows = packed.shape[0] * packed.shape[1]
+    with torch.cuda.device(packed.device):
+        sr, order = torch.sort(row0.reshape(-1))
+        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32, device=packed.device)
+        err = build.library().crt_binned_tile_dots(
+            packed.data_ptr(), qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
+            bounds.data_ptr(), keys.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+            sr.numel(), q, T, win, d, n_rows, nbins, _TC_CODE[packed.dtype], rt,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "binned_dots")
+    binned_dots.launches += 1
+    return vals, pos, aligned
+
+
+binned_dots.launches = 0
+
+
+def binned_dots_rowwise(
+    packed: torch.Tensor,
+    starts: torch.Tensor,
+    queries: torch.Tensor,
+    per_table: int,
+    nbins: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The previous design, one block per query reading every window
+    (`csrc/binned.cu`), kept so a run on the card can time it beside
+    `binned_dots` on the same inputs.  Same function and arguments (it also
+    takes f32 slabs); CPU tensors take the plain version."""
+    if not packed.is_cuda:
+        return binned_dots_plain(packed, starts, queries, per_table, nbins)
+    check_row_slab("binned_dots_rowwise", packed, starts, queries, _DTYPE_CODE)
     win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
     q, T = starts.shape
     d = packed.shape[2]
@@ -84,12 +153,12 @@ def binned_dots(
             pos.data_ptr(), q, T, win, d, nbins, _DTYPE_CODE[packed.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, "binned_dots")
-    binned_dots.launches += 1
+    build.check(err, "binned_dots_rowwise")
+    binned_dots_rowwise.launches += 1
     return vals, pos, aligned
 
 
-binned_dots.launches = 0
+binned_dots_rowwise.launches = 0
 
 
 def binned_topk(

@@ -44,8 +44,14 @@ _SIGNATURES = {
     "crt_slab_window_dots_rowwise": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, vals, pos, q, T, win, d, nbins, dtype, stream)
     "crt_binned_dots": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (slab, queries, row0, pair, bounds, keys, vals, pos,
+    #  P, q, T, win, d, n_rows, nbins, dtype, rt, stream)
+    "crt_binned_tile_dots": (_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab4, queries, row0, dots, q, T, win, d, stream)
     "crt_int4_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (slab4, queries, row0, pair, bounds, dots, P, T, win, d, n_rows, rt, stream)
+    "crt_int4_tile_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, out, sink, q, T, win, d, mode, dtype, stream)
     "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)

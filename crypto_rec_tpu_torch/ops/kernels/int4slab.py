@@ -10,11 +10,17 @@ lanes.  The dots come out in the TPU kernel's "halves" layout: lane
 j < win / 2 scores CSR row aligned + 2j, lane j >= win / 2 scores row
 aligned + 2 (j - win / 2) + 1; `slab_topk_int4` maps lanes back so.
 
-A CUDA tensor launches the Hopper kernel in `csrc/int4slab.cu` (or
-raises); a CPU tensor runs `slab_window_dots_int4_plain`, a gather, the
-nibble unpack and two f32 einsums chunked over queries.  Stage 1 of
-`slab_topk_int4` is an exact per-window `torch.topk` where the TPU ran
-`approx_max_k`, as in K1's epilogue.
+A CUDA tensor launches the tile-major Hopper kernel in
+`csrc/probetile.cu` (or raises): each tile of packed rows read and
+unpacked once into bf16, dotted on the tensor cores against every window
+that covers it, with the schedule (in packed rows) found on the device
+from the pairs sorted by first row; it takes d % 64 == 0, d <= 256.  A CPU
+tensor runs `slab_window_dots_int4_plain`, a gather, the nibble unpack and
+two f32 einsums chunked over queries.  `slab_window_dots_int4_rowwise` is
+the previous design, one block per window (`csrc/int4slab.cu`), kept for
+side-by-side timing on the card.  Stage 1 of `slab_topk_int4` is an exact
+per-window `torch.topk` where the TPU ran `approx_max_k`, as in K1's
+epilogue.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    _dedup_topk_pairs, align_starts, check_row_slab, window_chunks,
+    _check_tile_slab, _dedup_topk_pairs, align_starts, check_row_slab, probe_tile_rows,
+    window_chunks,
 )
 
 ALIGN4 = 64     # CSR-row alignment of int4 windows (32 packed rows)
@@ -85,6 +92,17 @@ def slab_window_dots_int4_plain(
     return dots, aligned
 
 
+def _cuda_int4(name, packed4, starts, queries, per_table):
+    check_row_slab(name, packed4, starts, queries, (torch.uint8,))
+    win, aligned, row0 = _geometry4(packed4, starts, per_table)
+    q, T = starts.shape
+    qv = queries.float().contiguous()
+    if qv.data_ptr() % 16:
+        qv = qv.clone()
+    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed4.device)
+    return win, aligned, row0.contiguous(), qv, dots
+
+
 def slab_window_dots_int4(
     packed4: torch.Tensor,
     starts: torch.Tensor,
@@ -94,19 +112,27 @@ def slab_window_dots_int4(
     """-> (dots [q, L, win] f32 in the halves layout, aligned CSR starts
     [q, L] int32, local to each table).  Arguments as the plain version.
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors (d % 64 == 0, d <=
+    256) the tile-major Hopper kernel; the sort of the pairs runs here on
+    the device, inside the kernel's time."""
     if not packed4.is_cuda:
         return slab_window_dots_int4_plain(packed4, starts, queries, per_table)
-    check_row_slab("slab_window_dots_int4", packed4, starts, queries, (torch.uint8,))
-    win, aligned, row0 = _geometry4(packed4, starts, per_table)
-    q, T = starts.shape
-    qv = queries.float().contiguous()
-    row0 = row0.contiguous()
-    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed4.device)
+    _check_tile_slab(packed4)
+    win, aligned, row0, qv, dots = _cuda_int4("slab_window_dots_int4", packed4, starts,
+                                             queries, per_table)
+    if starts.shape[0] == 0:
+        return dots, aligned
+    d = packed4.shape[2]
+    rt = probe_tile_rows(d) // 2          # packed rows: two bf16 rows each
+    n_rows = packed4.shape[0] * packed4.shape[1]
     with torch.cuda.device(packed4.device):
-        err = build.library().crt_int4_window_dots(
-            packed4.data_ptr(), qv.data_ptr(), row0.data_ptr(), dots.data_ptr(),
-            q, T, win, packed4.shape[2], torch.cuda.current_stream().cuda_stream,
+        sr, order = torch.sort(row0.reshape(-1))
+        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32,
+                             device=packed4.device)
+        err = build.library().crt_int4_tile_dots(
+            packed4.data_ptr(), qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
+            bounds.data_ptr(), dots.data_ptr(), sr.numel(), starts.shape[1], win, d,
+            n_rows, rt, torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "slab_window_dots_int4")
     slab_window_dots_int4.launches += 1
@@ -114,6 +140,34 @@ def slab_window_dots_int4(
 
 
 slab_window_dots_int4.launches = 0
+
+
+def slab_window_dots_int4_rowwise(
+    packed4: torch.Tensor,
+    starts: torch.Tensor,
+    queries: torch.Tensor,
+    per_table: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The previous design, one block per window (`csrc/int4slab.cu`), kept
+    so a run on the card can time it beside `slab_window_dots_int4` on the
+    same inputs.  Same function and arguments; CPU tensors take the plain
+    version."""
+    if not packed4.is_cuda:
+        return slab_window_dots_int4_plain(packed4, starts, queries, per_table)
+    win, aligned, row0, qv, dots = _cuda_int4("slab_window_dots_int4_rowwise", packed4,
+                                             starts, queries, per_table)
+    q, T = starts.shape
+    with torch.cuda.device(packed4.device):
+        err = build.library().crt_int4_window_dots(
+            packed4.data_ptr(), qv.data_ptr(), row0.data_ptr(), dots.data_ptr(),
+            q, T, win, packed4.shape[2], torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "slab_window_dots_int4_rowwise")
+    slab_window_dots_int4_rowwise.launches += 1
+    return dots, aligned
+
+
+slab_window_dots_int4_rowwise.launches = 0
 
 
 def slab_topk_int4(

@@ -230,6 +230,13 @@ def tile_plan(packed: torch.Tensor, row0, head, size, win: int):
     return torch.cat([pairs[None], fields[:, p]]), item_tile, item_lo, item_cnt
 
 
+def probe_tile_rows(d: int) -> int:
+    """Staged bf16 rows a tile of the tensor-core probe kernels
+    (`csrc/probetile.cu`: P3 binned, P6 int4, whose packed rows unpack
+    into two bf16 rows each): 128 at d <= 128, 64 at d = 256 (32 KB)."""
+    return 128 if d <= 128 else 64
+
+
 def tile_launch(packed: torch.Tensor, queries: torch.Tensor, plan,
                 dots: torch.Tensor, mask: bool) -> None:
     """Launch the tile-major kernel (`csrc/slabtile.cu`) on a plan from

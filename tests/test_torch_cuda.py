@@ -370,6 +370,126 @@ def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
         call()
 
 
+# ---- the tensor-core P3 and P6 bodies (csrc/probetile.cu) ----
+
+# name -> (T, n_pad, q, how the starts are drawn): windows that share tiles
+# heavily (many queries on a few buckets), that barely do (few queries on
+# a long slab), and that run into the slab's end, whose last tile is cut
+# short (T n_pad is no multiple of any tile's rows, nor T n_pad / 2)
+SHARING = {
+    "heavy": (8, 8192, 700, "few"),
+    "sparse": (8, 65536, 23, "uniform"),
+    "last tile cut": (4, 8092, 300, "end"),
+}
+
+
+def _sharing_inputs(g, case, dtype, cuda, d=128):
+    T, n_pad, q, how = SHARING[case]
+    packed, _, qv = _probe_inputs(g, dtype, cuda, T=T, n_pad=n_pad, d=d, q=q)
+    if how == "few":
+        starts = torch.randint(0, 6, (q, T), generator=g, device=cuda,
+                               dtype=torch.int32) * 1000
+    elif how == "end":
+        starts = torch.randint(n_pad - 700, n_pad, (q, T), generator=g, device=cuda,
+                               dtype=torch.int32)
+    else:
+        starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda,
+                               dtype=torch.int32)
+    return packed, starts, qv
+
+
+def _binned_against_plain(fn, packed, starts, qv, nbins):
+    """vals within the dot tolerance, aligned starts equal, every bin's lane
+    equal wherever its best and second-best dots differ by more than it."""
+    from crypto_rec_tpu_torch.ops.kernels.binned import binned_dots_plain
+
+    vk, pk, ak = fn(packed, starts, qv, 488, nbins)
+    vp, pp, ap = binned_dots_plain(packed, starts, qv, 488, nbins)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    atol = 1e-4 if packed.dtype == torch.int8 else 1e-6
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=atol)
+    dots, _ = slab_window_dots_plain(packed, starts, None, qv, 488, mask=False)
+    top2 = torch.topk(dots.reshape(dots.shape[0], -1, nbins), 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > atol + 1e-5 * top2[:, 0].abs()
+    assert float(clear.float().mean()) > 0.9
+    assert torch.equal(pk[clear], pp[clear])
+
+
+@pytest.mark.parametrize("case", list(SHARING))
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+@pytest.mark.parametrize("dtype,nbins", [(torch.int8, 128), (torch.bfloat16, 256)])
+def test_binned_designs_match_plain(cuda, dtype, nbins, design, case):
+    from crypto_rec_tpu_torch.ops.kernels import binned
+
+    fn = binned.binned_dots if design == "tiles" else binned.binned_dots_rowwise
+    g = torch.Generator(device=cuda).manual_seed(21)
+    _binned_against_plain(fn, *_sharing_inputs(g, case, dtype, cuda), nbins)
+
+
+@pytest.mark.parametrize("nbins", [128, 256])
+def test_binned_designs_ties_go_to_the_lowest_row(cuda, nbins):
+    """Integer-valued slabs and queries, heavily shared windows: exact
+    dots, ties in most bins, and every winner's lane (the lowest row of a
+    tie) equal to the plain version's across tiles, tables and blocks."""
+    from crypto_rec_tpu_torch.ops.kernels import binned
+
+    fn = binned.binned_dots
+    g = torch.Generator(device=cuda).manual_seed(9)
+    packed = torch.randint(-2, 3, (8, 8192, 128), generator=g, device=cuda).to(torch.int8)
+    qv = torch.randint(-1, 2, (300, 128), generator=g, device=cuda).float()
+    starts = torch.randint(0, 4, (300, 8), generator=g, device=cuda,
+                           dtype=torch.int32) * 2000
+    vk, pk, _ = fn(packed, starts, qv, 488, nbins)
+    vp, pp, _ = binned.binned_dots_plain(packed, starts, qv, 488, nbins)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("case", list(SHARING))
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+def test_int4_designs_match_plain(cuda, design, d, case):
+    """The tile-major P6 (and the previous body) against the plain version
+    on every lane; windows starting on a 64-row boundary read the same
+    aligned start."""
+    from crypto_rec_tpu_torch.ops.kernels import int4slab
+
+    fn = (int4slab.slab_window_dots_int4 if design == "tiles"
+          else int4slab.slab_window_dots_int4_rowwise)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    packed, starts, qv = _sharing_inputs(g, case, torch.int8, cuda, d=d)
+    p4 = int4slab.repack_int4(packed)
+    dk, ak = fn(p4, starts, qv, 488)
+    dp, ap = int4slab.slab_window_dots_int4_plain(p4, starts, qv, 488)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel,dtype,d,error", [
+    ("binned", torch.float32, 128, TypeError),
+    ("binned", torch.int8, 80, ValueError),
+    ("int4", torch.uint8, 80, ValueError),
+    ("int4", torch.uint8, 320, ValueError),
+])
+def test_tile_wrappers_raise_outside_their_domain(cuda, kernel, dtype, d, error):
+    """On CUDA tensors the tensor-core P3 and P6 wrappers take int8 / bf16
+    (P3) or uint8 (P6) slabs with d % 64 == 0 and d <= 256, and raise on
+    anything else before a launch; the plain versions take these inputs."""
+    from crypto_rec_tpu_torch.ops.kernels import binned, int4slab
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    packed = torch.randint(-7, 8, (2, 1024, d), generator=g, device=cuda).to(dtype)
+    starts = torch.randint(0, 1024, (6, 2), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(6, d, generator=g, device=cuda)
+    fn = binned.binned_dots if kernel == "binned" else int4slab.slab_window_dots_int4
+    before = fn.launches
+    with pytest.raises(error):
+        fn(packed, starts, qv, 200)
+    assert fn.launches == before
+
+
 def test_tile_kernel_at_the_streamed_chunk_geometry(cuda):
     """K1 on one streamed chunk's slab: int8 [4, chunk_pad, 128] built by
     build_streamed_index's host build, cosine windows of 256 (win 384),

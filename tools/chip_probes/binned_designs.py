@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""The tensor-core P3 and P6 bodies against the row-wise ones, at the
+probes' operating point.
+
+On the probes' index (2M x 128 planted corpus, cosine k = 13, L = 8, window
+488 -> win 640; benchmarks/experiments/_common): P3 (binned top-1) at
+q = 8,192 on int8 and bf16 slabs, nbins 128 and 256: the tile-major kernel
+(`binned_dots`, csrc/probetile.cu) against the previous row-wise body
+(`binned_dots_rowwise`); P6 (int4 slabs) at q = 32,768: the tile-major
+kernel against the row-wise body.
+Each is first held against its plain version on 2,048 queries (values
+within rtol 1e-5 / atol 1e-4, P3's winning lanes equal wherever a bin's
+best two dots differ by more), then timed in alternating rounds (CUDA
+events, medians) beside the host-side schedule of the tile-major kernels
+alone (the sort of the pairs by first row) and, for the record, K1's torch
+work list at the same windows (`tile_plan`, ~25 small operations), with
+the bound of the call (ops/kernels/bounds.py).
+
+    python3 tools/chip_probes/binned_designs.py [--rounds 15]
+
+Needs a CUDA device.  Prints the card first and the results as one JSON
+line last (also written to chiprun_out/binned_designs.json).
+"""
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+
+from crypto_rec_tpu_torch.experiments import _common as C  # noqa: E402
+from crypto_rec_tpu_torch.models.lsh.index import pack_index  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels import binned, bounds, int4slab  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels.slabscore import (  # noqa: E402
+    _geometry, slab_window_dots_plain, tile_plan, window_len,
+)
+
+Q3, Q6, CHECK_Q = 8192, 32768, 2048
+TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def check_p3(fn, p, nbins):
+    """-> (max |err| of vals, bins whose winner differs though clear)."""
+    c = (p.packed, p.s0[:CHECK_Q], p.qv[:CHECK_Q], p.per_table, nbins)
+    vk, pk, ak = fn(*c)
+    vp, pp, ap = binned.binned_dots_plain(*c)
+    if not torch.equal(ak, ap) or not torch.allclose(vk, vp, **TOL):
+        raise AssertionError(f"{fn.__name__}: kernel and plain differ")
+    dots, _ = slab_window_dots_plain(p.packed, c[1], None, c[2], p.per_table, mask=False)
+    top2 = torch.topk(dots.reshape(CHECK_Q, -1, nbins), 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > TOL["atol"] + TOL["rtol"] * top2[:, 0].abs()
+    bad = int(((pk != pp) & clear).sum())
+    if bad:
+        raise AssertionError(f"{fn.__name__}: {bad} clear winners differ")
+    return float((vk - vp).abs().max())
+
+
+def p3_rows(p, rounds):
+    dname = str(p.packed.dtype)[6:]
+    win = window_len(p.per_table)
+    _, _, row0, _, _ = _geometry(p.packed, p.s0, None, p.per_table, False)
+    n_rows = p.packed.shape[0] * p.packed.shape[1]
+    out = []
+    for nbins in (128, 256):
+        err = check_p3(binned.binned_dots, p, nbins)
+        a = (p.packed, p.s0, p.qv, p.per_table, nbins)
+        t = C.timed_alternating({
+            "tiles": lambda: binned.binned_dots(*a),
+            "rowwise": lambda: binned.binned_dots_rowwise(*a),
+            "sort": lambda: torch.sort(row0.reshape(-1)),
+            "k1_work_list": lambda: tile_plan(p.packed, row0.contiguous(), None, None, win),
+        }, p.packed.device, rounds)
+        ms = {k: statistics.median(v) for k, v in t.items()}
+        b = bounds.window_call(row0, win, n_rows, p.packed.shape[2] * p.packed.element_size(),
+                               p.packed.shape[2], inputs=(p.qv,),
+                               outputs=binned.binned_dots(*a))
+        row = dict(kernel="P3 binned_dots", geometry=f"{dname} nbins {nbins}, q = {Q3}",
+                   max_abs_err=err, ms=ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   share_of_bound={k: b["bound_ms"] / ms[k]
+                                   for k in ("tiles", "rowwise")})
+        print(f"P3 {dname} nbins {nbins}: tiles {ms['tiles']:.3f} ms (sort "
+              f"{ms['sort']:.3f}; K1's work list {ms['k1_work_list']:.3f}), row-wise "
+              f"{ms['rowwise']:.3f}; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); max "
+              f"|err| {err:.3g}", flush=True)
+        out.append(row)
+    return out
+
+
+def p6_row(p, rounds):
+    p4 = int4slab.repack_int4(p.packed)
+    c = (p4, p.s0[:CHECK_Q], p.qv[:CHECK_Q], p.per_table)
+    (dk, ak), (dp, ap) = int4slab.slab_window_dots_int4(*c), \
+        int4slab.slab_window_dots_int4_plain(*c)
+    if not torch.equal(ak, ap) or not torch.allclose(dk, dp, **TOL):
+        raise AssertionError("P6: kernel and plain differ")
+    err = float((dk - dp).abs().max())
+    del dk, dp
+    a = (p4, p.s0, p.qv, p.per_table)
+    win, _, row0 = int4slab._geometry4(p4, p.s0, p.per_table)
+    t = C.timed_alternating({
+        "tiles": lambda: int4slab.slab_window_dots_int4(*a),
+        "rowwise": lambda: int4slab.slab_window_dots_int4_rowwise(*a),
+        "sort": lambda: torch.sort(row0.reshape(-1)),
+    }, p4.device, rounds)
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    outs = int4slab.slab_window_dots_int4(*a)
+    b = bounds.window_call(row0, win // 2, p4.shape[0] * p4.shape[1], p4.shape[2],
+                           2 * p4.shape[2], inputs=(p.qv,), outputs=outs)
+    print(f"P6 int4 q = {Q6}: tiles {ms['tiles']:.3f} ms (sort "
+          f"{ms['sort']:.3f}), row-wise {ms['rowwise']:.3f}; bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']}); max |err| {err:.3g}", flush=True)
+    return dict(kernel="P6 slab_window_dots_int4", geometry=f"uint8 {list(p4.shape)}, "
+                f"q = {Q6}", max_abs_err=err, ms=ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"],
+                share_of_bound={k: b["bound_ms"] / ms[k] for k in ("tiles", "rowwise")})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=15)
+    ap.add_argument("--n", type=int, default=C.N)
+    args = ap.parse_args(argv)
+    C.require_cuda()
+    card = C.card()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus, queries, true_idx = C.make_corpus("planted", args.n, Q6, 0, dev)
+    index = C.build_cosine(corpus, 40)
+    rows = []
+    for dt in (torch.int8, torch.bfloat16):
+        pidx = pack_index(index, corpus, dtype=dt)
+        rows += p3_rows(C.probe_index(pidx, queries[:Q3]), args.rounds)
+        if dt == torch.int8:
+            rows.append(p6_row(C.probe_index(pidx, queries), args.rounds))
+        del pidx
+        torch.cuda.empty_cache()
+    line = json.dumps({"card": card, "rows": rows})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "binned_designs.json"), "w") as f:
+        f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
