@@ -370,10 +370,12 @@ def _counters():
     from crypto_rec_tpu_torch.ops.kernels.int4slab import slab_window_dots_int4
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
-    from crypto_rec_tpu_torch.ops.kernels.slabvariants import slab_window_variant
+    from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
+        rounded_query_dots, slab_window_variant,
+    )
 
     return (signproj_bucket_ids, slab_window_dots, binned_dots, slab_window_dots_int4,
-            slab_window_variant, blk_window_dots)
+            slab_window_variant, rounded_query_dots, blk_window_dots)
 
 
 def zero_counts():
@@ -661,13 +663,15 @@ def _same_recall(label, ids_k, ids_p, truth):
     return dict(recall=rk, plain_recall=rp)
 
 
-def _timed_pair(kern, plain, p, row_bytes, rowwise=None):
+def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None):
     """Kernel and plain version (and the kernel's previous row-wise body:
-    K1's, P3's, P6's) in alternating rounds, with the bound of the kernel's call on the probe's windows:
-    covered slab rows x row_bytes, the queries and the kernel's outputs,
-    2 d FLOP a window lane on bf16 tensor cores.  No one PyTorch call
-    computes a probe kernel's function (a gather and an einsum are two):
-    library_ms is None."""
+    K1's, P2's rounded_query, P3's, P5's, P6's) in alternating rounds, with
+    the bound of the kernel's call on its windows: covered slab rows x
+    row_bytes, the queries and the kernel's outputs, 2 d FLOP a window lane
+    on bf16 tensor cores.  windows: (row0 [q, L] absolute first rows, win)
+    of the kernel's own geometry; None takes K1's (32-row aligned starts).
+    No one PyTorch call computes a probe kernel's function (a gather and an
+    einsum are two): library_ms is None."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry, window_len
 
@@ -675,9 +679,9 @@ def _timed_pair(kern, plain, p, row_bytes, rowwise=None):
     if rowwise is None:
         del t["prev_ms"]
     outs = [o for o in kern() if isinstance(o, torch.Tensor)]
-    row0 = _geometry(p.packed, p.s0, None, p.per_table, False)[2]
-    b = bounds.window_call(row0, window_len(p.per_table),
-                           p.packed.shape[0] * p.packed.shape[1], row_bytes,
+    row0, win = windows or (_geometry(p.packed, p.s0, None, p.per_table, False)[2],
+                            window_len(p.per_table))
+    b = bounds.window_call(row0, win, p.packed.shape[0] * p.packed.shape[1], row_bytes,
                            p.packed.shape[2], inputs=(p.qv,), outputs=outs)
     return with_bound(dict(library_ms=None, **t), b)
 
@@ -762,12 +766,14 @@ def check_int4(p):
 
 def check_variants(p16, p8):
     """P2 / P4 variant modes against their plain versions: load_floor
-    output and XOR fold exact (bf16 and int8), rounded_query (bf16) within
-    DOT_TOL, i8_dot (int8) bit for bit; times at q = PQ; the recall of the
+    output and XOR fold exact (bf16 and int8), rounded_query (bf16, the
+    tile-major kernel) within DOT_TOL, i8_dot (int8) bit for bit; times at
+    q = PQ, rounded_query's beside its row-wise body; the recall of the
     i8_dot retrieval path against its plain path."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_topk
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
         quantize_queries, slab_window_variant, slab_window_variant_plain,
+        slab_window_variant_rowwise,
     )
 
     out = []
@@ -787,25 +793,34 @@ def check_variants(p16, p8):
         else:
             err = 0.0
         a = (p.packed, p.s0, qv, p.per_table, mode)
+        rowwise = ((lambda: slab_window_variant_rowwise(*a[:4]))
+                   if mode == "rounded_query" else None)
         res = dict(geometry=f"{mode} {dname}, q = {PQ}", max_abs_err=err,
                    **_timed_pair(lambda: slab_window_variant(*a),
                                  lambda: slab_window_variant_plain(*a), p,
-                                 p.packed.shape[2] * p.packed.element_size()))
+                                 p.packed.shape[2] * p.packed.element_size(),
+                                 rowwise=rowwise))
         if mode == "i8_dot":
             ids = [slab_topk(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
                    for f in (slab_window_variant, slab_window_variant_plain)]
             res.update(_same_recall("P4 mxu_i8", *ids, p.true_idx))
+        prev = f"row-wise {res['prev_ms']:.3f} ms, " if rowwise else ""
         log(f"phase 12 slab_window_variant {mode} {dname}: max |err| {err:.3g} over "
             f"{CHECK_Q} queries{' (output and fold exact)' if len(got) == 3 else ''}; q={PQ}: "
-            f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+            f"kernel {res['ms']:.3f} ms, {prev}plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
         out.append(res)
     return out
 
 
 def check_blk(p):
-    """P5 blocked dots against the plain version (DOT_TOL), times at q = PQ."""
+    """P5 blocked dots (the tile-major kernel) against the plain version
+    (DOT_TOL), times at q = PQ beside the row-wise body, and the bound on
+    P5's own windows: 128-row aligned starts blk0 * 128, blk_window_len
+    lanes."""
     from crypto_rec_tpu_torch.ops.kernels.blkslab import (
-        blk_window_dots, blk_window_dots_plain, to_blk,
+        B, _geometry_blk, blk_window_dots, blk_window_dots_plain, blk_window_dots_rowwise,
+        to_blk,
     )
 
     dname = str(p.packed.dtype)[6:]
@@ -816,12 +831,18 @@ def check_blk(p):
     if not torch.equal(ak, ap):
         raise AssertionError("blk: aligned starts differ")
     err = _close(f"blk {dname}", dk, dp)
+    del dk, dp
     a = (blk, p.s0, p.qv, p.per_table)
+    win, _, blk0 = _geometry_blk(blk, p.s0, p.per_table)
     res = dict(geometry=f"{dname} {list(blk.shape)}, q = {PQ}", max_abs_err=err,
                **_timed_pair(lambda: blk_window_dots(*a), lambda: blk_window_dots_plain(*a),
-                             p, p.packed.shape[2] * p.packed.element_size()))
+                             p, p.packed.shape[2] * p.packed.element_size(),
+                             rowwise=lambda: blk_window_dots_rowwise(*a),
+                             windows=(blk0 * B, win)))
     log(f"phase 12 blk_window_dots {dname}: max |err| {err:.3g} over {CHECK_Q} queries; "
-        f"q={PQ}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms")
+        f"q={PQ}: tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({100 * res['share_of_bound']:.1f}%)")
     return res
 
 
@@ -2240,13 +2261,20 @@ def main() -> int:
                   note="tile-major on the tensor cores; prev_ms: the row-wise body "
                        "(csrc/binned.cu) in the same rounds"),
         probe_row("slab_window_variant", "slabvariants.cu",
-                  "benchmarks/experiments/probe_r3_split.py:156", variants[:3],
-                  note="modes load_floor (zeros) and rounded_query (mxu_rep, mxu_tile)"),
+                  "benchmarks/experiments/probe_r3_split.py:156", variants[:2],
+                  note="mode load_floor (zeros), the row-wise body"),
+        probe_row("rounded_query_dots", "probetile.cu",
+                  "benchmarks/experiments/probe_r3_split.py:156", variants[2:3],
+                  note="mode rounded_query (mxu_rep, mxu_tile), tile-major on the tensor "
+                       "cores; prev_ms: the row-wise body (csrc/slabvariants.cu) in the "
+                       "same rounds"),
         probe_row("slab_window_variant", "slabvariants.cu",
                   "benchmarks/experiments/probe_r3_final.py:99", variants[3:],
                   note="mode i8_dot (mxu_i8)"),
-        probe_row("blk_window_dots", "blkslab.cu", "benchmarks/experiments/probe_r4_blk.py:132",
-                  probe_checks["blk"]),
+        probe_row("blk_window_dots", "probetile.cu",
+                  "benchmarks/experiments/probe_r4_blk.py:132", probe_checks["blk"],
+                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
+                       "(csrc/blkslab.cu) in the same rounds"),
         probe_row("slab_window_dots_int4", "probetile.cu",
                   "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]],
                   note="tile-major on the tensor cores; prev_ms: the row-wise body "

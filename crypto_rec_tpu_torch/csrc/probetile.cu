@@ -1,49 +1,63 @@
-// P3 (binned top-1) and P6 (int4 slabs), tile-major on the tensor cores.
+// The probe kernels P2 (rounded_query), P3 (binned top-1), P5 (blocked
+// slabs) and P6 (int4 slabs), tile-major on the tensor cores.
 //
-// Replaces the TPU kernels benchmarks/experiments/probe_r3_binned.py
-// (binned_dots, pallas_call at :98; body make_binned_kernel :44-83) and
-// benchmarks/experiments/probe_r5_int4.py (slab_window_dots_int4,
-// pallas_call at :139; body _make_kernel_int4 :68-110).  The functions are
-// those of the row-wise bodies in binned.cu and int4slab.cu.
+// Replaces the TPU kernels benchmarks/experiments/probe_r3_split.py
+// (run_variant, pallas_call at :156; its "mxu_rep" / "mxu_tile" bodies in
+// variant_kernel :90-139), probe_r3_binned.py (binned_dots, pallas_call at
+// :98; body make_binned_kernel :44-83), probe_r4_blk.py (blk_window_dots,
+// pallas_call at :132; body make_blk_kernel :68-112) and probe_r5_int4.py
+// (slab_window_dots_int4, pallas_call at :139; body _make_kernel_int4
+// :68-110).  The functions are those of the row-wise bodies in
+// slabvariants.cu, binned.cu, blkslab.cu and int4slab.cu.
 //
 // What bounds them on the H100: the unique bytes.  Each slab row covered by
 // some window is needed once, but the row-wise bodies read every window
-// from memory: at the probe points P3 reads 5.4 GB of logical int8 windows
-// (10.7 GB bf16) against 1.86 GB (3.7 GB) of covered rows, and P6 10.7 GB
-// of packed windows against ~1.1 GB; P6 also unpacks every nibble once per
-// window (~10 windows a row at q = 32,768).  Reading a row once means
-// dotting it against every window that covers it: a matrix product, which
-// the tensor cores finish far under the byte bound.
+// from memory: at the probe point (q = 8,192, L = 8, win 640) that is
+// 5.4 GB of logical int8 windows (10.7 GB bf16) against 1.86 GB (3.7 GB) of
+// covered rows; P6 reads 10.7 GB of packed windows against ~1.1 GB and
+// unpacks every nibble once per window.  Reading a row once means dotting
+// it against every window that covers it: a matrix product, which the
+// tensor cores finish far under the byte bound.
 //
 // Design: K1's tile-major product (slabtile.cu) with the schedule found on
 // the device.  The wrapper only sorts the (query, table) pairs by first
-// slab row (ops/kernels/binned.py, int4slab.py): K1's torch work list of
-// ~25 small operations costs 0.3-0.9 ms of host dispatch at the probe
-// point on an H100 host (tools/chip_probes/binned_designs.py), more than
-// a third of the kernel.  Here `tile_bounds` gives each tile of RT slab
-// rows the range of sorted pairs whose windows meet it, and one block
+// slab row (`tile_schedule`, ops/kernels/probetile.py): K1's torch work
+// list of ~25 small operations costs 0.3-0.9 ms of host dispatch at the
+// probe point on an H100 host (tools/chip_probes/binned_designs.py), more
+// than a third of the kernel.  Here `tile_bounds` gives each tile of RT
+// slab rows the range of sorted pairs whose windows meet it, and one block
 // takes one tile:
-// - it stages the tile's rows in shared memory as bf16, once, by cp.async:
-//   bf16 rows as they are; int8 rows, and P6's packed rows, as bytes into
-//   the tail of the tile's space, then upcast in place, each packed row
-//   unpacked into its two CSR rows, hi nibbles to the tile's first half and
-//   lo nibbles to its second (values -8..7 are exact in bf16);
-// - it walks its pairs in chunks of M = 16: each pair's f32 query split
-//   into three bf16 terms (split3), then 4 warps run mma.sync m16n8k16 with
-//   the tile's rows on the M side and the pairs on N in tiles of 8, so a
-//   chunk of <= 8 pairs (P3 has ~3 a tile) costs half the products of a
-//   full one; each 16-wide slice of d is summed from zero and added in f32,
-//   as in K1, so the dots keep K1's tolerance;
+// - it stages the tile in shared memory as bf16, once, by cp.async:
+//   bf16 rows (P2, P3) as they are; int8 rows (P3), and P6's packed rows,
+//   as bytes into the tail of the tile's space, then upcast in place, each
+//   packed row unpacked into its two CSR rows, hi nibbles to the tile's
+//   first half and lo nibbles to its second (values -8..7 are exact in
+//   bf16).  P5's tile is one 128-row block of the blocked layout (half a
+//   block at d = 256), stored [d][128]: it is staged as stored, [d][RT]
+//   bf16 (int8 blocks through the tail and the upcast), and the product
+//   reads it transposed (ldmatrix .trans); the same XOR swizzle keeps the
+//   8 element rows one ldmatrix matrix reads on 8 distinct bank groups;
+// - it walks its pairs in chunks of M = 16: each pair's f32 query as NQ
+//   bf16 terms: P2's query is rounded to bf16 by definition (the TPU's
+//   astype), one term, so its products are exact and only the order of
+//   the sum changes; P3, P5 and P6 split it into three (split3), so their
+//   dots keep K1's tolerance.  4 warps run mma.sync m16n8k16 with the
+//   tile's rows on the M side and the pairs on N in tiles of 8, so a chunk
+//   of <= 8 pairs (~3 a tile at the probe point) costs half the products
+//   of a full one; each 16-wide slice of d is summed from zero and added
+//   in f32, as in K1;
 // - the epilogue stages the chunk's dots in shared memory, over the query
-//   terms.  P6 writes each pair's lanes in the halves layout: two
-//   contiguous runs, hi lanes j and lo lanes win / 2 + j.  P3 never writes
-//   the dots: for each pair it reduces the run of window lanes the tile
-//   covers to one candidate per bin (the largest dot, the lowest lane on
-//   ties), and combines it into the query's [nbins] keys with one 64-bit
-//   atomicMax (the key below).  The keys start at zero and every flat lane
-//   belongs to exactly one tile, so each bin ends with its winner; a last
-//   pass decodes the keys.
-// Blocks are small (128 threads, 44 KB of shared memory at d <= 128), so
+//   terms.  P2 and P5 write each pair's run of the lanes the tile covers,
+//   out[pair * win + j], with float4 stores (the runs start on 32-row
+//   boundaries, P5's are whole 128- or 64-lane runs).  P6 writes each
+//   pair's lanes in the halves layout: two contiguous runs, hi lanes j and
+//   lo lanes win / 2 + j.  P3 never writes the dots: for each pair it
+//   reduces the run of window lanes the tile covers to one candidate per
+//   bin (the largest dot, the lowest lane on ties), and combines it into
+//   the query's [nbins] keys with one 64-bit atomicMax (the key below).
+//   The keys start at zero and every flat lane belongs to exactly one
+//   tile, so each bin ends with its winner; a last pass decodes the keys.
+// Blocks are small (128 threads, 41-56 KB of shared memory), so four or
 // five share an SM and one block's loads overlap the others' work.
 
 #include "slabrow.cuh"
@@ -105,16 +119,23 @@ using namespace tilemma;
 constexpr int kThreads = 128;     // 4 warps along the tile's rows
 constexpr int kM = 16;            // pairs a chunk: one m16 tile
 
-// what a block stages and what its epilogue writes
-enum Kind { kBinI8 = 0, kBinBF16 = 1, kInt4 = 2 };
+// what a block stages and what its epilogue writes (the C entry points'
+// kind codes; ops/kernels/probetile.py KINDS)
+enum Kind {
+  kBinI8 = 0, kBinBF16 = 1,       // P3: CSR rows; bin keys
+  kInt4 = 2,                      // P6: packed rows; dots, halves layout
+  kRoundBF16 = 3,                 // P2 rounded_query: bf16 CSR rows; dots
+  kBlkI8 = 4, kBlkBF16 = 5,       // P5: blocks [d][128], staged as stored; dots
+};
 
 struct Args {
-  const uint8_t* slab;       // [n_rows, d]: int8 / bf16 rows, or P6's packed bytes
+  const uint8_t* slab;       // [n_rows, d]: int8 / bf16 rows or P6's packed
+                             // bytes; P5: [n_rows / 128, d, 128] blocks
   const float* queries;      // [q, d] f32, 16-byte aligned
   const int32_t* row0;       // [P] first slab rows, ascending
   const long long* pair;     // [P] pair ids (query * T + table) in that order
   const int32_t* bounds;     // [2, n_tiles]: each tile's first and end sorted pair
-  void* out;                 // P3: keys [q, nbins] u64, zeroed; P6: dots [P, win] f32
+  void* out;                 // P3: keys [q, nbins] u64, zeroed; else dots [P, win] f32
   int P, n_tiles, T, win, span, d, n_rows, nbins;
 };
 
@@ -152,45 +173,62 @@ __device__ __forceinline__ uint32_t nib_bf16x2(uint32_t x, uint32_t sel) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// RT staged bf16 rows: 128 at d <= 128, 64 at d = 256 (32 KB either way)
-template <int KIND, int RT>
+template <int KIND> struct Traits {
+  // a blocked tile, staged as stored ([d][RT]): the product reads it transposed
+  static constexpr bool blk = KIND == kBlkI8 || KIND == kBlkBF16;
+  // staged from bytes upcast in place (int8 rows or blocks, packed int4)
+  static constexpr bool bytes = KIND == kBinI8 || KIND == kInt4 || KIND == kBlkI8;
+  static constexpr bool dots = KIND == kRoundBF16 || blk;   // plain [P, win] dots
+};
+
+// RT staged bf16 rows: 128 at d <= 128, 64 at d = 256 (32 KB either way);
+// NQ bf16 query terms
+template <int KIND, int RT, int NQ>
 __global__ void __launch_bounds__(kThreads, 5)
 probe_tile(Args a) {
+  using K = Traits<KIND>;
   constexpr int M = kM;
   constexpr int kSR = KIND == kInt4 ? RT / 2 : RT;       // slab rows a tile holds
   constexpr int kMaxD = RT == 128 ? 128 : 256;
-  constexpr int kLd = KIND == kBinBF16 ? 1 : kSR * kMaxD / 16 / kThreads;
+  constexpr int kLd = K::bytes ? kSR * kMaxD / 16 / kThreads : 1;
   constexpr int MR = RT / 64;                            // m16 tiles a warp
   constexpr int OS = RT + 4;                             // o_s stride: conflict-free
   const int lo = a.bounds[blockIdx.x], hi = a.bounds[a.n_tiles + blockIdx.x];
   if (hi <= lo) return;
   const int tile0 = blockIdx.x * kSR;
-  const int d = a.d, cpr = d / 8, c16 = d / 16;   // 16-byte chunks: bf16, bytes
+  const int d = a.d, cpr = d / 8;                  // 16-byte bf16 chunks a query
+  // a staged row: one slab row of d elements, or (blk) one element of RT lanes
+  const int sw = K::blk ? RT : d;
+  const int bw = sw / 16;                          // its 16-byte chunks of bytes
+  // a blocked tile's first element: block tile0 / 128, lane tile0 % 128
+  const size_t blk0 = K::blk ? (size_t)(tile0 / 128) * d * 128 + tile0 % 128 : 0;
 
   extern __shared__ __align__(128) uint8_t smem_raw[];
-  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [RT][d]
-  __nv_bfloat16* a_s = b_s + RT * d;                                  // [3][M][d]
+  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [RT][d] / [d][RT]
+  __nv_bfloat16* a_s = b_s + RT * d;                                  // [NQ][M][d]
   float* o_s = reinterpret_cast<float*>(a_s);                         // [M][OS]
   int (*s_meta)[M] = reinterpret_cast<int (*)[M]>(                    // [2][M]
-      reinterpret_cast<uint8_t*>(a_s) + max(3 * M * d * 2, M * OS * 4));
+      reinterpret_cast<uint8_t*>(a_s) + max(NQ * M * d * 2, M * OS * 4));
 
-  // the tile's rows by cp.async, zero past the slab's end: bf16 rows
-  // straight to the tile, byte rows (int8, packed int4) to the tail of the
-  // tile's space, upcast in place once the first chunk's queries are staged
+  // the tile by cp.async, zero past the slab's end: bf16 straight to the
+  // tile, bytes (int8, packed int4) to the tail of the tile's space, upcast
+  // in place once the first chunk's queries are staged
   uint8_t* raw = smem_raw + RT * d * 2 - kSR * d;                     // [kSR][d] bytes
-  if (KIND == kBinBF16) {
-    for (int i = threadIdx.x; i < RT * cpr; i += kThreads) {
-      const int r = i / cpr, c = i % cpr;
-      const bool ok = tile0 + r < a.n_rows;
-      const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + c * 8) * 2 : a.slab;
-      cp_async16(b_s + swz(r, c, d), src, ok ? 16 : 0);
+  if constexpr (!K::bytes) {
+    for (int i = threadIdx.x; i < kSR * d / 8; i += kThreads) {
+      const int r = i / (sw / 8), c = i % (sw / 8);
+      const bool ok = K::blk || tile0 + r < a.n_rows;
+      const size_t e = K::blk ? blk0 + (size_t)r * 128 + c * 8
+                              : (size_t)(tile0 + r) * d + c * 8;
+      cp_async16(b_s + swz(r, c, sw), ok ? a.slab + e * 2 : a.slab, ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kSR * c16; i += kThreads) {
-      const int r = i / c16;
-      const bool ok = tile0 + r < a.n_rows;
-      const uint8_t* src = ok ? a.slab + (size_t)(tile0 + r) * d + (i % c16) * 16 : a.slab;
-      cp_async16(raw + i * 16, src, ok ? 16 : 0);
+    for (int i = threadIdx.x; i < kSR * d / 16; i += kThreads) {
+      const int r = i / bw, c = i % bw;
+      const bool ok = K::blk || tile0 + r < a.n_rows;
+      const size_t e = K::blk ? blk0 + (size_t)r * 128 + c * 16
+                              : (size_t)(tile0 + r) * d + c * 16;
+      cp_async16(raw + i * 16, ok ? a.slab + e : a.slab, ok ? 16 : 0);
     }
   }
 
@@ -202,9 +240,8 @@ probe_tile(Args a) {
   for (int c0 = lo; c0 < hi; c0 += M) {
     const int cnt = min(M, hi - c0);
     if (c0 != lo) __syncthreads();        // the last chunk's epilogue is done
-    // pair slot m and its kSub lanes: the slot's fields and
-    // its query's three bf16 terms; rows past cnt are never read into a
-    // written dot
+    // pair slot m and its kSub lanes: the slot's fields and its query's NQ
+    // bf16 terms; rows past cnt are never read into a written dot
     if (slot < cnt) {
       const int p = (int)__ldg(a.pair + c0 + slot);
       if (sub == 0) s_meta[0][slot] = p;
@@ -213,24 +250,28 @@ probe_tile(Args a) {
       for (int c = sub; c < cpr; c += kSub) {        // 8 elements a chunk
         const float4 u = __ldg(q4 + 2 * c), w = __ldg(q4 + 2 * c + 1);
         const float x[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
-        uint32_t t[3][4];
+        uint32_t t[NQ][4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float h[2][3];
+          if constexpr (NQ == 1) {
+            t[0][e] = bf16x2(x[2 * e], x[2 * e + 1]);          // round to nearest even
+          } else {
+            float h[2][3];
 #pragma unroll
-          for (int k = 0; k < 2; ++k) split3(x[2 * e + k], h[k]);
+            for (int k = 0; k < 2; ++k) split3(x[2 * e + k], h[k]);
 #pragma unroll
-          for (int term = 0; term < 3; ++term) t[term][e] = bf16x2(h[0][term], h[1][term]);
+            for (int term = 0; term < NQ; ++term) t[term][e] = bf16x2(h[0][term], h[1][term]);
+          }
         }
 #pragma unroll
-        for (int term = 0; term < 3; ++term)
+        for (int term = 0; term < NQ; ++term)
           *reinterpret_cast<uint4*>(a_s + term * M * d + swz(slot, c, d)) =
               make_uint4(t[term][0], t[term][1], t[term][2], t[term][3]);
       }
     }
     if (c0 == lo) {
       cp_async_wait_all();
-      if (KIND != kBinBF16) {
+      if constexpr (K::bytes) {
         // every thread's bytes are in; all are read before the bf16 rows
         // overwrite them
         __syncthreads();
@@ -238,15 +279,15 @@ probe_tile(Args a) {
 #pragma unroll
         for (int j = 0; j < kLd; ++j) {
           const int i = threadIdx.x + j * kThreads;
-          v[j] = i < kSR * c16 ? reinterpret_cast<const uint4*>(raw)[i]
-                               : make_uint4(0, 0, 0, 0);
+          v[j] = i < kSR * d / 16 ? reinterpret_cast<const uint4*>(raw)[i]
+                                  : make_uint4(0, 0, 0, 0);
         }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < kLd; ++j) {
           const int i = threadIdx.x + j * kThreads;
-          if (i >= kSR * c16) break;
-          const int r = i / c16, c = i % c16;
+          if (i >= kSR * d / 16) break;
+          const int r = i / bw, c = i % bw;
           const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
           uint32_t o[2][8];                  // [hi, lo] (P6) or [row] (int8)
 #pragma unroll
@@ -266,9 +307,9 @@ probe_tile(Args a) {
 #pragma unroll
           for (int h = 0; h < (KIND == kInt4 ? 2 : 1); ++h) {
             const int row = r + h * kSR;
-            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c, d)) =
+            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c, sw)) =
                 make_uint4(o[h][0], o[h][1], o[h][2], o[h][3]);
-            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c + 1, d)) =
+            *reinterpret_cast<uint4*>(b_s + swz(row, 2 * c + 1, sw)) =
                 make_uint4(o[h][4], o[h][5], o[h][6], o[h][7]);
           }
         }
@@ -278,7 +319,7 @@ probe_tile(Args a) {
 
     // the chunk's RT x 16 dots with the slab rows on the mma's M side: a
     // warp RT / 4 rows (MR m16 tiles) against the pairs in n8 tiles, one up
-    // to 8 pairs and two past; a pair's three query terms chain into one
+    // to 8 pairs and two past; a pair's query terms chain into one
     // accumulator, each 16-wide slice summed from zero (hi, then mid and lo
     // onto it) and added to the running dots in f32, as in K1
     const int halves = cnt > 8 ? 2 : 1;
@@ -290,13 +331,18 @@ probe_tile(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mr][h][e] = 0.f;
     for (int kc = 0; kc < d / 16; ++kc) {
-      uint32_t af[MR][4], b[3][2][2];
+      uint32_t af[MR][4], b[NQ][2][2];
 #pragma unroll
-      for (int mr = 0; mr < MR; ++mr)
-        ldmatrix_x4(af[mr], b_s + swz(n_base + mr * 16 + rr + (mi & 1) * 8,
-                                      2 * kc + (mi >> 1), d));
+      for (int mr = 0; mr < MR; ++mr) {
+        if constexpr (K::blk)     // element rows 16 kc.., lanes of the m16 tile
+          ldmatrix_x4_trans(af[mr], b_s + swz(16 * kc + (mi >> 1) * 8 + rr,
+                                              (n_base + mr * 16) / 8 + (mi & 1), RT));
+        else
+          ldmatrix_x4(af[mr], b_s + swz(n_base + mr * 16 + rr + (mi & 1) * 8,
+                                        2 * kc + (mi >> 1), d));
+      }
 #pragma unroll
-      for (int term = 0; term < 3; ++term) {
+      for (int term = 0; term < NQ; ++term) {
         uint32_t r4[4];
         ldmatrix_x4(r4, a_s + term * M * d + swz(rr + (mi >> 1) * 8, 2 * kc + (mi & 1), d));
         b[term][0][0] = r4[0]; b[term][0][1] = r4[1];
@@ -309,8 +355,9 @@ probe_tile(Args a) {
           if (h >= halves) break;
           float part[4];
           mma_bf16_zero(part, af[mr], b[0][h][0], b[0][h][1]);
-          mma_bf16(part, af[mr], b[1][h][0], b[1][h][1]);
-          mma_bf16(part, af[mr], b[2][h][0], b[2][h][1]);
+#pragma unroll
+          for (int term = 1; term < NQ; ++term)
+            mma_bf16(part, af[mr], b[term][h][0], b[term][h][1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mr][h][e] += part[e];
         }
@@ -334,7 +381,15 @@ probe_tile(Args a) {
       const int pid = s_meta[0][m], r0 = s_meta[1][m];
       const int j_lo = max(0, tile0 - r0), j_hi = min(a.span, tile0 + kSR - r0);
       const float* src = o_s + m * OS + r0 - tile0;      // src[j]: lane j's dot
-      if (KIND == kInt4) {
+      if constexpr (K::dots) {
+        float* dst = static_cast<float*>(a.out) + (size_t)pid * a.win;
+        if ((r0 - tile0) % 4 == 0) {         // j_lo, j_hi and both rows on 16 bytes
+          for (int j = j_lo + 4 * l; j < j_hi; j += 128)
+            *reinterpret_cast<float4*>(dst + j) = *reinterpret_cast<const float4*>(src + j);
+        } else {
+          for (int j = j_lo + l; j < j_hi; j += 32) dst[j] = src[j];
+        }
+      } else if constexpr (KIND == kInt4) {
         float* dst = static_cast<float*>(a.out) + (size_t)pid * a.win;
         for (int j = j_lo + l; j < j_hi; j += 32) {
           dst[j] = src[j];                     // hi nibble: CSR row aligned + 2j
@@ -365,17 +420,18 @@ probe_tile(Args a) {
 
 template <int KIND, int RT>
 int launch(const Args& a, int32_t* bounds, cudaStream_t stream) {
+  constexpr int NQ = KIND == kRoundBF16 ? 1 : 3;
   constexpr int kSR = KIND == kInt4 ? RT / 2 : RT;
   if (a.n_tiles <= 0 || a.P <= 0) return (int)cudaSuccess;
   tile_bounds<<<(a.P + 1 + 255) / 256, 256, 0, stream>>>(a.row0, a.P, a.span, kSR,
                                                          a.n_tiles, bounds);
-  const int q_bytes = 3 * kM * a.d * 2, o_bytes = kM * (RT + 4) * 4;   // o_s over a_s
+  const int q_bytes = NQ * kM * a.d * 2, o_bytes = kM * (RT + 4) * 4;   // o_s over a_s
   const size_t smem = (size_t)RT * a.d * 2 + (q_bytes > o_bytes ? q_bytes : o_bytes) +
                       2 * kM * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      probe_tile<KIND, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      probe_tile<KIND, RT, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  probe_tile<KIND, RT><<<a.n_tiles, kThreads, smem, stream>>>(a);
+  probe_tile<KIND, RT, NQ><<<a.n_tiles, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -386,6 +442,8 @@ int launch_rt(const Args& a, int32_t* bounds, int rt, cudaStream_t s) {
   const int sr = KIND == kInt4 ? rt * 2 : rt;          // staged bf16 rows
   if (a.d <= 0 || a.d > 256 || a.d % 64 || sr != (a.d <= 128 ? 128 : 64))
     return (int)cudaErrorInvalidValue;
+  if (Traits<KIND>::blk && (a.n_rows % 128 || a.win % 128))
+    return (int)cudaErrorInvalidValue;                 // whole blocks
   return a.d <= 128 ? launch<KIND, 128>(a, bounds, s) : launch<KIND, 64>(a, bounds, s);
 }
 
@@ -412,13 +470,23 @@ extern "C" int crt_binned_tile_dots(const void* slab, const void* queries,
   return binkey::launch_decode(keys, vals, pos, n_keys, s);
 }
 
-extern "C" int crt_int4_tile_dots(const void* slab4, const void* queries,
-                                  const void* row0, const void* pair, void* bounds,
-                                  void* dots, int P, int T, int win, int d, int n_rows,
-                                  int rt, void* stream) {
-  if (rt <= 0 || win % 2) return (int)cudaErrorInvalidValue;
-  Args a{(const uint8_t*)slab4, (const float*)queries, (const int32_t*)row0,
+// P2 rounded_query, P5 and P6: dots [P, win] f32 of each sorted pair, in
+// its window's lane order (P6: the halves layout); kind as `Kind`, n_rows
+// and rt in the slab's rows (P6: packed rows)
+extern "C" int crt_tile_dots(const void* slab, const void* queries, const void* row0,
+                             const void* pair, void* bounds, void* dots, int P, int T,
+                             int win, int d, int n_rows, int kind, int rt, void* stream) {
+  if (rt <= 0 || (kind == kInt4 && win % 2)) return (int)cudaErrorInvalidValue;
+  Args a{(const uint8_t*)slab, (const float*)queries, (const int32_t*)row0,
          (const long long*)pair, (const int32_t*)bounds, dots, P, (n_rows + rt - 1) / rt,
-         T, win, win / 2, d, n_rows, 0};
-  return launch_rt<kInt4>(a, (int32_t*)bounds, rt, (cudaStream_t)stream);
+         T, win, kind == kInt4 ? win / 2 : win, d, n_rows, 0};
+  int32_t* b = (int32_t*)bounds;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case kInt4: return launch_rt<kInt4>(a, b, rt, s);
+    case kRoundBF16: return launch_rt<kRoundBF16>(a, b, rt, s);
+    case kBlkI8: return launch_rt<kBlkI8>(a, b, rt, s);
+    case kBlkBF16: return launch_rt<kBlkBF16>(a, b, rt, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

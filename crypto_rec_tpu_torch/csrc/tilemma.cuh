@@ -1,5 +1,5 @@
 // Shared pieces of the tensor-core slab kernels (slabtile.cu and
-// probetile.cu): cp.async, ldmatrix and mma.sync m16n8k16 bf16 with f32
+// probetile.cu): cp.async, ldmatrix (plain and .trans) and mma.sync m16n8k16 bf16 with f32
 // accumulation, the XOR swizzle of a staged bf16 tile, and the three-term
 // bf16 split of an f32 query.
 
@@ -25,6 +25,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
 }
+// the same four 8x8 matrices, each stored transposed (its rows are the
+// fragment's columns)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -45,6 +52,8 @@ __device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const uint32_t (&a)
 }
 
 // element offset of 16-byte chunk c of row r in a [rows][d] bf16 block
+// (d >= 64: the 8 rows that one ldmatrix matrix reads at one chunk fall on
+// 8 distinct chunks of a 128-byte span)
 __device__ __forceinline__ int swz(int r, int c, int d) {
   return r * d + ((c ^ (r & 7)) << 3);
 }

@@ -32,6 +32,7 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.probetile import tile_queries, tile_schedule
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _DTYPE_CODE, _check_tile_slab, _dedup_topk_pairs, _geometry, _window_offsets,
     check_row_slab, lane_rows, probe_tile_rows, slab_window_dots_plain, window_len,
@@ -74,14 +75,11 @@ def _cuda_binned(packed, starts, queries, per_table, nbins):
     win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
     q, T = starts.shape
     _check_bins(T, win, nbins)
-    qv = queries.float().contiguous()
-    if qv.data_ptr() % 16:
-        qv = qv.clone()
     dev = packed.device
     outs = (torch.empty(q, nbins, dtype=torch.int64, device=dev),
             torch.empty(q, nbins, dtype=torch.float32, device=dev),
             torch.empty(q, nbins, dtype=torch.int32, device=dev))
-    return win, aligned, row0.contiguous(), qv, outs
+    return win, aligned, row0.contiguous(), tile_queries(queries), outs
 
 
 def binned_dots(
@@ -109,8 +107,7 @@ def binned_dots(
     rt = probe_tile_rows(d)
     n_rows = packed.shape[0] * packed.shape[1]
     with torch.cuda.device(packed.device):
-        sr, order = torch.sort(row0.reshape(-1))
-        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32, device=packed.device)
+        sr, order, bounds = tile_schedule(row0, n_rows, rt)
         err = build.library().crt_binned_tile_dots(
             packed.data_ptr(), qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
             bounds.data_ptr(), keys.data_ptr(), vals.data_ptr(), pos.data_ptr(),

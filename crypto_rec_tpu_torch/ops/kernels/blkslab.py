@@ -8,9 +8,16 @@ starts align down to 128 rows and the window is `blk_window_len` lanes
 (nblk = win / 128 blocks); lane j of the output is the dot against CSR
 row aligned + j, the row layout's lane order.
 
-A CUDA tensor launches the Hopper kernel in `csrc/blkslab.cu` (or
-raises); a CPU tensor runs `blk_window_dots_plain`, a block gather and an
-f32 einsum over the block rows, chunked over queries.
+A CUDA tensor launches the tile-major Hopper kernel in
+`csrc/probetile.cu` (or raises): one 128-row block (half a block at
+d = 256) a tile, staged once as bf16 and dotted on the tensor cores
+against every window that covers it, the query in three bf16 terms, the
+schedule found on the device from the pairs sorted by first row; int8 and
+bf16 slabs with d % 64 == 0 and d <= 256.  A CPU tensor runs
+`blk_window_dots_plain`, a block gather and an f32 einsum over the block
+rows, chunked over queries.  `blk_window_dots_rowwise`, the previous
+design, one block per window (`csrc/blkslab.cu`), stays for side-by-side
+timing on the card; no probe path calls it.
 """
 
 from __future__ import annotations
@@ -20,7 +27,10 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
-from crypto_rec_tpu_torch.ops.kernels.slabscore import _PLAIN_BYTES, align_starts
+from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
+from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+    _PLAIN_BYTES, _check_tile_slab, align_starts, probe_tile_rows,
+)
 
 B = 128          # CSR rows per block
 _DTYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
@@ -78,6 +88,30 @@ def blk_window_dots_plain(
     return dots, aligned
 
 
+def _check_blk(name, packed_blk, starts, queries):
+    if packed_blk.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} takes int8/bf16 slabs, got {packed_blk.dtype}")
+    d = packed_blk.shape[2]
+    if queries.shape != (starts.shape[0], d):
+        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
+    if starts.device != packed_blk.device or queries.device != packed_blk.device:
+        raise ValueError(f"{name}: slabs, starts and queries must share one CUDA device")
+    if not packed_blk.is_contiguous() or packed_blk.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned slab")
+
+
+def _cuda_blk(packed_blk, starts, queries, per_table):
+    """Checks and geometry of the tensor-core body -> (aligned, row0 [q, L]
+    absolute first CSR rows blk0 * 128, 16-byte aligned f32 queries, dots
+    [q, L, win])."""
+    _check_blk("blk_window_dots", packed_blk, starts, queries)
+    _check_tile_slab(packed_blk)
+    win, aligned, blk0 = _geometry_blk(packed_blk, starts, per_table)
+    q, T = starts.shape
+    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed_blk.device)
+    return aligned, blk0 * B, tile_queries(queries), dots
+
+
 def blk_window_dots(
     packed_blk: torch.Tensor,
     starts: torch.Tensor,
@@ -87,19 +121,38 @@ def blk_window_dots(
     """-> (dots [q, L, win] f32, aligned CSR starts [q, L] int32, local to
     each table).  Arguments as the plain version.
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors (int8 or bf16 slabs,
+    d % 64 == 0, d <= 256) the tile-major Hopper kernel; the sort of the
+    pairs runs here on the device, inside the kernel's time."""
     if not packed_blk.is_cuda:
         return blk_window_dots_plain(packed_blk, starts, queries, per_table)
-    if packed_blk.dtype not in _DTYPE_CODE:
-        raise TypeError(f"blk_window_dots takes int8/bf16 slabs, got {packed_blk.dtype}")
-    d = packed_blk.shape[2]
-    if queries.shape != (starts.shape[0], d):
-        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
-    if starts.device != packed_blk.device or queries.device != packed_blk.device:
-        raise ValueError("blk_window_dots: slabs, starts and queries must share one "
-                         "CUDA device")
-    if not packed_blk.is_contiguous() or packed_blk.data_ptr() % 16:
-        raise ValueError("blk_window_dots needs a contiguous, 16-byte aligned slab")
+    aligned, row0, qv, dots = _cuda_blk(packed_blk, starts, queries, per_table)
+    if starts.shape[0] == 0:
+        return dots, aligned
+    L, npb, d, _ = packed_blk.shape
+    kind = "blk_int8" if packed_blk.dtype == torch.int8 else "blk_bf16"
+    tile_dots("blk_window_dots", packed_blk, qv, row0, dots, d, L * npb * B, kind,
+              probe_tile_rows(d))
+    blk_window_dots.launches += 1
+    return dots, aligned
+
+
+blk_window_dots.launches = 0
+
+
+def blk_window_dots_rowwise(
+    packed_blk: torch.Tensor,
+    starts: torch.Tensor,
+    queries: torch.Tensor,
+    per_table: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The previous design, one block per window (`csrc/blkslab.cu`), kept
+    so a run on the card can time it beside `blk_window_dots` on the same
+    inputs.  Same function and arguments (any d); CPU tensors take the
+    plain version."""
+    if not packed_blk.is_cuda:
+        return blk_window_dots_plain(packed_blk, starts, queries, per_table)
+    _check_blk("blk_window_dots_rowwise", packed_blk, starts, queries)
     win, aligned, blk0 = _geometry_blk(packed_blk, starts, per_table)
     nblk = win // B
     threads = nblk * B // (4 // packed_blk.element_size())
@@ -113,12 +166,12 @@ def blk_window_dots(
     with torch.cuda.device(packed_blk.device):
         err = build.library().crt_blk_window_dots(
             packed_blk.data_ptr(), qv.data_ptr(), blk0.data_ptr(), dots.data_ptr(),
-            q, T, nblk, d, _DTYPE_CODE[packed_blk.dtype],
+            q, T, nblk, packed_blk.shape[2], _DTYPE_CODE[packed_blk.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, "blk_window_dots")
-    blk_window_dots.launches += 1
+    build.check(err, "blk_window_dots_rowwise")
+    blk_window_dots_rowwise.launches += 1
     return dots, aligned
 
 
-blk_window_dots.launches = 0
+blk_window_dots_rowwise.launches = 0

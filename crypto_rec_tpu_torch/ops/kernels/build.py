@@ -50,8 +50,8 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab4, queries, row0, dots, q, T, win, d, stream)
     "crt_int4_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (slab4, queries, row0, pair, bounds, dots, P, T, win, d, n_rows, rt, stream)
-    "crt_int4_tile_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (slab, queries, row0, pair, bounds, dots, P, T, win, d, n_rows, kind, rt, stream)
+    "crt_tile_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, out, sink, q, T, win, d, mode, dtype, stream)
     "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)

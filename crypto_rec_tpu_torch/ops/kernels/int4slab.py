@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _check_tile_slab, _dedup_topk_pairs, align_starts, check_row_slab, probe_tile_rows,
     window_chunks,
@@ -96,11 +97,8 @@ def _cuda_int4(name, packed4, starts, queries, per_table):
     check_row_slab(name, packed4, starts, queries, (torch.uint8,))
     win, aligned, row0 = _geometry4(packed4, starts, per_table)
     q, T = starts.shape
-    qv = queries.float().contiguous()
-    if qv.data_ptr() % 16:
-        qv = qv.clone()
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed4.device)
-    return win, aligned, row0.contiguous(), qv, dots
+    return win, aligned, row0.contiguous(), tile_queries(queries), dots
 
 
 def slab_window_dots_int4(
@@ -123,18 +121,9 @@ def slab_window_dots_int4(
     if starts.shape[0] == 0:
         return dots, aligned
     d = packed4.shape[2]
-    rt = probe_tile_rows(d) // 2          # packed rows: two bf16 rows each
-    n_rows = packed4.shape[0] * packed4.shape[1]
-    with torch.cuda.device(packed4.device):
-        sr, order = torch.sort(row0.reshape(-1))
-        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32,
-                             device=packed4.device)
-        err = build.library().crt_int4_tile_dots(
-            packed4.data_ptr(), qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
-            bounds.data_ptr(), dots.data_ptr(), sr.numel(), starts.shape[1], win, d,
-            n_rows, rt, torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "slab_window_dots_int4")
+    # packed rows: two bf16 rows each
+    tile_dots("slab_window_dots_int4", packed4, qv, row0, dots, d,
+              packed4.shape[0] * packed4.shape[1], "int4", probe_tile_rows(d) // 2)
     slab_window_dots_int4.launches += 1
     return dots, aligned
 

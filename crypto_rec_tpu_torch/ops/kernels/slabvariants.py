@@ -19,8 +19,16 @@ aligned + j):
 - ``i8_dot`` (P4 "mxu_i8", int8 slabs): the int8 row against an int8
   query (`quantize_queries`), an exact integer sum written as f32.
 
-A CUDA tensor launches the Hopper kernel in `csrc/slabvariants.cu` (or
-raises); a CPU tensor runs `slab_window_variant_plain`.
+A CUDA tensor launches a Hopper kernel (or raises): ``rounded_query``
+the tile-major tensor-core kernel in `csrc/probetile.cu`
+(`rounded_query_dots`: each covered slab row staged once as bf16, dotted
+with mma.sync against one bf16 term of every query whose window covers it,
+the schedule found on the device from the pairs sorted by first row; bf16
+slabs with d % 64 == 0 and d <= 256), ``load_floor`` and ``i8_dot`` the
+row-wise `variant_kernel` in `csrc/slabvariants.cu`, one block per window.
+A CPU tensor runs `slab_window_variant_plain`.  rounded_query's previous
+design, the row-wise body, stays as `slab_window_variant_rowwise` for
+side-by-side timing on the card; no probe path calls it.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from __future__ import annotations
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    _DTYPE_CODE, _geometry, check_row_slab, slab_window_dots_plain, window_chunks,
+    _DTYPE_CODE, _check_tile_slab, _geometry, check_row_slab, probe_tile_rows,
+    slab_window_dots_plain, window_chunks,
 )
 
 MODES = {"load_floor": 0, "rounded_query": 1, "i8_dot": 2}
@@ -94,6 +104,69 @@ def slab_window_variant_plain(
     return out, aligned, fold
 
 
+def _variant_launch(name, packed, starts, queries, per_table, mode):
+    """The row-wise `variant_kernel` (`csrc/slabvariants.cu`) on CUDA
+    tensors -> the outputs of `slab_window_variant`."""
+    _check_mode(packed, queries, mode)
+    check_row_slab(name, packed, starts, queries, _DTYPE_CODE)
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    qv = (queries if mode == "i8_dot" else queries.float()).contiguous()
+    if qv.data_ptr() % 16:
+        raise ValueError(f"{name} needs 16-byte aligned queries")
+    row0 = row0.contiguous()
+    out = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    fold = torch.zeros(q, dtype=torch.int32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = build.library().crt_slab_window_variant(
+            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), out.data_ptr(),
+            fold.data_ptr(), q, T, win, packed.shape[2], MODES[mode],
+            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, name)
+    return (out, aligned, fold) if mode == "load_floor" else (out, aligned)
+
+
+def _cuda_rounded(packed, starts, queries, per_table):
+    """Checks and geometry of the tensor-core rounded_query body ->
+    (aligned, row0, 16-byte aligned f32 queries, dots [q, T, win])."""
+    _check_mode(packed, queries, "rounded_query")
+    check_row_slab("rounded_query_dots", packed, starts, queries, (torch.bfloat16,))
+    _check_tile_slab(packed)
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    return aligned, row0, tile_queries(queries), dots
+
+
+def rounded_query_dots(
+    packed: torch.Tensor,    # [L, n_pad, d] bf16 CSR slabs
+    starts: torch.Tensor,    # [q, L] window starts within a table
+    queries: torch.Tensor,   # [q, d] f32
+    per_table: int,
+):
+    """`slab_window_variant`'s rounded_query -> (dots [q, L, win] f32,
+    aligned starts [q, L] int32, local to each table).
+
+    CPU tensors take the plain version; CUDA tensors (bf16 slabs, d % 64 ==
+    0, d <= 256) the tile-major Hopper kernel; the sort of the pairs runs
+    here on the device, inside the kernel's time."""
+    if not packed.is_cuda:
+        return slab_window_variant_plain(packed, starts, queries, per_table,
+                                         "rounded_query")
+    aligned, row0, qv, dots = _cuda_rounded(packed, starts, queries, per_table)
+    if starts.shape[0] == 0:
+        return dots, aligned
+    d = packed.shape[2]
+    tile_dots("rounded_query_dots", packed, qv, row0, dots, d,
+              packed.shape[0] * packed.shape[1], "rounded_query", probe_tile_rows(d))
+    rounded_query_dots.launches += 1
+    return dots, aligned
+
+
+rounded_query_dots.launches = 0
+
+
 def slab_window_variant(
     packed: torch.Tensor,
     starts: torch.Tensor,
@@ -105,28 +178,39 @@ def slab_window_variant(
     to each table), and for load_floor a third output, the [q] int32 XOR
     fold.  Arguments as the plain version.
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors the Hopper kernels:
+    rounded_query `rounded_query_dots` (counted there), load_floor and
+    i8_dot the row-wise body."""
     if not packed.is_cuda:
         return slab_window_variant_plain(packed, starts, queries, per_table, mode)
-    _check_mode(packed, queries, mode)
-    check_row_slab("slab_window_variant", packed, starts, queries, _DTYPE_CODE)
-    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
-    q, T = starts.shape
-    qv = (queries if mode == "i8_dot" else queries.float()).contiguous()
-    if qv.data_ptr() % 16:
-        raise ValueError("slab_window_variant needs 16-byte aligned queries")
-    row0 = row0.contiguous()
-    out = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
-    fold = torch.zeros(q, dtype=torch.int32, device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = build.library().crt_slab_window_variant(
-            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), out.data_ptr(),
-            fold.data_ptr(), q, T, win, packed.shape[2], MODES[mode],
-            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "slab_window_variant")
+    if mode == "rounded_query":
+        return rounded_query_dots(packed, starts, queries, per_table)
+    out = _variant_launch("slab_window_variant", packed, starts, queries, per_table, mode)
     slab_window_variant.launches += 1
-    return (out, aligned, fold) if mode == "load_floor" else (out, aligned)
+    return out
 
 
 slab_window_variant.launches = 0
+
+
+def slab_window_variant_rowwise(
+    packed: torch.Tensor,
+    starts: torch.Tensor,
+    queries: torch.Tensor,
+    per_table: int,
+):
+    """rounded_query on its previous design, the row-wise body (one block
+    per window, `csrc/slabvariants.cu`), kept so a run on the card can time
+    it beside `rounded_query_dots` on the same inputs.  Arguments as
+    `rounded_query_dots` (any d % 16 == 0); CPU tensors take the plain
+    version."""
+    if not packed.is_cuda:
+        return slab_window_variant_plain(packed, starts, queries, per_table,
+                                         "rounded_query")
+    out = _variant_launch("slab_window_variant_rowwise", packed, starts, queries,
+                          per_table, "rounded_query")
+    slab_window_variant_rowwise.launches += 1
+    return out
+
+
+slab_window_variant_rowwise.launches = 0

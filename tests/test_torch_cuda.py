@@ -349,7 +349,7 @@ def test_blk_kernel_matches_plain(cuda, dtype):
     assert torch.allclose(dk, dr, rtol=1e-5, atol=1e-4 if dtype == torch.int8 else 1e-6)
 
 
-@pytest.mark.parametrize("kernel", ["binned", "int4", "variant", "blk"])
+@pytest.mark.parametrize("kernel", ["binned", "int4", "variant", "rounded", "blk"])
 def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
     """Slabs on the card with starts on the host: the wrapper raises, it
     never falls back to the plain version."""
@@ -364,13 +364,16 @@ def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
                                                        starts, qv, 488),
         "variant": lambda: slabvariants.slab_window_variant(packed, starts, qv, 488,
                                                             "load_floor"),
+        "rounded": lambda: slabvariants.slab_window_variant(packed.to(torch.bfloat16),
+                                                            starts, qv, 488,
+                                                            "rounded_query"),
         "blk": lambda: blkslab.blk_window_dots(blkslab.to_blk(packed), starts, qv, 488),
     }[kernel]
     with pytest.raises(ValueError, match="device"):
         call()
 
 
-# ---- the tensor-core P3 and P6 bodies (csrc/probetile.cu) ----
+# ---- the tensor-core P2, P3, P5 and P6 bodies (csrc/probetile.cu) ----
 
 # name -> (T, n_pad, q, how the starts are drawn): windows that share tiles
 # heavily (many queries on a few buckets), that barely do (few queries on
@@ -383,8 +386,10 @@ SHARING = {
 }
 
 
-def _sharing_inputs(g, case, dtype, cuda, d=128):
+def _sharing_inputs(g, case, dtype, cuda, d=128, blocks=False):
+    """blocks: n_pad cut to whole 128-row blocks (P5's layout)."""
     T, n_pad, q, how = SHARING[case]
+    n_pad = n_pad // 128 * 128 if blocks else n_pad
     packed, _, qv = _probe_inputs(g, dtype, cuda, T=T, n_pad=n_pad, d=d, q=q)
     if how == "few":
         starts = torch.randint(0, 6, (q, T), generator=g, device=cuda,
@@ -467,23 +472,91 @@ def test_int4_designs_match_plain(cuda, design, d, case):
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("case", list(SHARING))
+def test_rounded_query_designs_match_plain(cuda, case, d, design):
+    """P2 rounded_query, tile-major (and the previous row-wise body),
+    against the plain version on every lane within the dot tolerance."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    fn = sv.rounded_query_dots if design == "tiles" else sv.slab_window_variant_rowwise
+    g = torch.Generator(device=cuda).manual_seed(23)
+    packed, starts, qv = _sharing_inputs(g, case, torch.bfloat16, cuda, d=d)
+    dk, ak = fn(packed, starts, qv, 488)
+    dp, ap = sv.slab_window_variant_plain(packed, starts, qv, 488, "rounded_query")
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_pad", [8192, 4097], ids=["aligned", "odd slab length"])
+def test_rounded_query_kernel_exact_on_integers(cuda, n_pad):
+    """Integer-valued bf16 slabs and f32 queries: every product and sum is
+    exact, so the tile-major kernel equals the plain version bit for bit
+    (an odd slab length takes the writer's scalar path)."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+    packed = torch.randint(-3, 4, (3, n_pad, 128), generator=g,
+                           device=cuda).to(torch.bfloat16)
+    qv = torch.randint(-2, 3, (257, 128), generator=g, device=cuda).float()
+    starts = torch.randint(0, n_pad, (257, 3), generator=g, device=cuda, dtype=torch.int32)
+    before = sv.rounded_query_dots.launches
+    dk, ak = sv.slab_window_variant(packed, starts, qv, 488, "rounded_query")
+    dp, ap = sv.slab_window_variant_plain(packed, starts, qv, 488, "rounded_query")
+    torch.cuda.synchronize()
+    assert sv.rounded_query_dots.launches == before + 1
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", list(SHARING))
+def test_blk_designs_match_plain(cuda, case, d, dtype, design):
+    """P5 tile-major (and the previous row-wise body) against the plain
+    version on every lane; "last tile cut" meets the slab's last block."""
+    from crypto_rec_tpu_torch.ops.kernels import blkslab
+
+    fn = blkslab.blk_window_dots if design == "tiles" else blkslab.blk_window_dots_rowwise
+    g = torch.Generator(device=cuda).manual_seed(25)
+    packed, starts, qv = _sharing_inputs(g, case, dtype, cuda, d=d, blocks=True)
+    blk = blkslab.to_blk(packed)
+    dk, ak = fn(blk, starts, qv, 488)
+    dp, ap = blkslab.blk_window_dots_plain(blk, starts, qv, 488)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap)
+    torch.testing.assert_close(dk, dp, rtol=1e-5,
+                               atol=1e-4 if dtype == torch.int8 else 1e-6)
+
+
 @pytest.mark.parametrize("kernel,dtype,d,error", [
     ("binned", torch.float32, 128, TypeError),
     ("binned", torch.int8, 80, ValueError),
     ("int4", torch.uint8, 80, ValueError),
     ("int4", torch.uint8, 320, ValueError),
+    ("rounded", torch.float32, 128, TypeError),
+    ("rounded", torch.bfloat16, 320, ValueError),
+    ("blk", torch.float32, 128, TypeError),
+    ("blk", torch.int8, 80, ValueError),
 ])
 def test_tile_wrappers_raise_outside_their_domain(cuda, kernel, dtype, d, error):
-    """On CUDA tensors the tensor-core P3 and P6 wrappers take int8 / bf16
-    (P3) or uint8 (P6) slabs with d % 64 == 0 and d <= 256, and raise on
-    anything else before a launch; the plain versions take these inputs."""
-    from crypto_rec_tpu_torch.ops.kernels import binned, int4slab
+    """On CUDA tensors the tensor-core wrappers take int8 / bf16 (P3, P5),
+    bf16 (P2) or uint8 (P6) slabs with d % 64 == 0 and d <= 256, and raise
+    on anything else before a launch; the plain versions take these inputs
+    (P2's only bf16 slabs)."""
+    from crypto_rec_tpu_torch.ops.kernels import binned, blkslab, int4slab, slabvariants
 
     g = torch.Generator(device=cuda).manual_seed(4)
     packed = torch.randint(-7, 8, (2, 1024, d), generator=g, device=cuda).to(dtype)
     starts = torch.randint(0, 1024, (6, 2), generator=g, device=cuda, dtype=torch.int32)
     qv = torch.randn(6, d, generator=g, device=cuda)
-    fn = binned.binned_dots if kernel == "binned" else int4slab.slab_window_dots_int4
+    fn = {"binned": binned.binned_dots, "int4": int4slab.slab_window_dots_int4,
+          "rounded": slabvariants.rounded_query_dots,
+          "blk": blkslab.blk_window_dots}[kernel]
+    if kernel == "blk":
+        packed = blkslab.to_blk(packed)
     before = fn.launches
     with pytest.raises(error):
         fn(packed, starts, qv, 200)

@@ -1,4 +1,5 @@
-"""The tensor-core P3 and P6 bodies' schedules and combine, on the CPU.
+"""The tensor-core probe bodies' schedules and combine (P2 rounded_query,
+P3, P5, P6), on the CPU.
 
 The CUDA kernel (csrc/probetile.cu) runs only on the card, so its pieces
 are stated and checked here in plain torch:
@@ -20,9 +21,26 @@ are stated and checked here in plain torch:
   version's dots, must equal `binned_dots_plain` exactly, vals and pos bit
   for bit, ties included; one integer-valued case also equals the JAX
   probe in interpret mode;
+- P2 rounded_query: the schedule drives an emulation that stages each
+  tile's bf16 rows once and dots them with chunks of 16 pairs' queries
+  rounded to ONE bf16 term, each 16-wide slice of d summed from zero and
+  added in f32 as the kernel does; it must agree with the plain version
+  within the dot tolerance (the products are exact: only the order of the
+  sum differs), bit for bit on integer-valued slabs and queries, and with
+  the JAX probe ("mxu_rep", interpret mode) within test_torch_probes.py's
+  bf16 tolerance (rtol 1e-5, atol 1e-6);
+- P5: tiles of one 128-row block (half a block at d = 256), row starts
+  blk0 * 128, each staged as stored ([d][rt]) and read transposed, the
+  query in three bf16 terms; every (pair, tile) meeting must be a whole
+  run of the pair's window, every lane written once; against the plain
+  version within the dot tolerance on int8 and bf16 slabs at d = 64, 128
+  and 256 with windows meeting the slab's first and last tiles, and
+  against the JAX probe in interpret mode within test_torch_probes.py's
+  tolerances (atol 1e-4 int8, 1e-6 bf16);
 - the domain the tensor-core wrappers check before they launch: int8 and
-  bf16 slabs (P3) or uint8 (P6) with d % 64 == 0 and d <= 256; f32 slabs
-  and other widths raise, though the plain versions take them.
+  bf16 slabs (P3, P5), bf16 (P2) or uint8 (P6) with d % 64 == 0 and
+  d <= 256; other slab types and widths raise, though the plain versions
+  take them (P2's plain version, too, takes only bf16 slabs).
 """
 
 import jax.numpy as jnp
@@ -30,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from crypto_rec_tpu_torch.ops.kernels import binned, int4slab
+from crypto_rec_tpu_torch.ops.kernels import binned, blkslab, int4slab, slabvariants
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _check_tile_slab, _geometry, probe_tile_rows, slab_window_dots_plain, split_bf16x3,
 )
@@ -300,6 +318,160 @@ def test_binned_schedule_equals_the_jax_probe():
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
 
 
+# ---- P2 rounded_query and P5: dots written as whole runs ----
+
+def slice_sum(terms: torch.Tensor, staged: torch.Tensor) -> torch.Tensor:
+    """The kernels' f32 sum: terms [NQ, cnt, d] bf16-exact query terms,
+    staged [rows, d] -> [cnt, rows]; each 16-wide slice of d summed over
+    the terms from zero, then added to the running dots."""
+    acc = torch.zeros(terms.shape[1], staged.shape[0])
+    for s in range(0, staged.shape[1], 16):
+        acc = acc + sum(t[:, s:s + 16] @ staged[:, s:s + 16].T for t in terms)
+    return acc
+
+
+def emulate_rounded(packed, starts, queries, per_table):
+    """The tile-major P2 rounded_query in plain torch -> (dots [q, T, win],
+    aligned, writes [q, T, win]: how often each lane was written)."""
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    d = packed.shape[2]
+    flat = packed.reshape(-1, d).float()
+    n_rows = flat.shape[0]
+    term = queries.to(torch.bfloat16).float()[None]              # ONE bf16 term
+    dots = torch.full((q * T, win), float("nan"))
+    writes = torch.zeros(q * T, win, dtype=torch.int64)
+    for t0, p, r0 in chunks(row0, win, n_rows, probe_tile_rows(d)):
+        rows = torch.arange(t0, min(t0 + probe_tile_rows(d), n_rows))
+        block = slice_sum(term[:, p // T], flat[rows])
+        j = rows[None, :] - r0.long()[:, None]
+        pi, ri = torch.nonzero((j >= 0) & (j < win), as_tuple=True)
+        dots[p[pi], j[pi, ri]] = block[pi, ri]
+        writes[p[pi], j[pi, ri]] += 1
+    return dots.reshape(q, T, win), aligned, writes.reshape(q, T, win)
+
+
+def _p2_case(name, seed, integer):
+    """bf16 slabs of CASES' shape: unit rows, or small integers; f32
+    queries (unit, not pre-rounded, or integer-valued)."""
+    p8, starts, qv = _case(name, seed, integer)
+    if integer:
+        return p8.to(torch.bfloat16), starts, qv
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=p8.shape)
+                         .astype(np.float32))
+    return torch.nn.functional.normalize(x, dim=-1).to(torch.bfloat16), starts, qv
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_rounded_query_tile_schedule_matches_plain(case, integer):
+    packed, starts, qv = _p2_case(case, 50 + list(CASES).index(case), integer)
+    got, a_got, writes = emulate_rounded(packed, starts, qv, PT)
+    want, a_want = slabvariants.slab_window_variant_plain(packed, starts, qv, PT,
+                                                          "rounded_query")
+    assert torch.equal(a_got, a_want)
+    assert torch.equal(writes, torch.ones_like(writes))
+    if integer:                 # exact products and sums: any order, same bits
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def emulate_blk(packed_blk, starts, queries, per_table):
+    """The tile-major P5 in plain torch -> (dots [q, T, win], aligned,
+    writes).  A tile is rt lanes of one block, staged as stored ([d][rt])
+    and read transposed; each pair it meets gets one whole run."""
+    win, aligned, blk0 = blkslab._geometry_blk(packed_blk, starts, per_table)
+    q, T = starts.shape
+    L, npb, d, B = packed_blk.shape
+    blocks = packed_blk.reshape(-1, d, B).float()
+    n_rows, rt = L * npb * B, probe_tile_rows(d)
+    terms = split_bf16x3(queries).float().transpose(0, 1)       # [3, q, d]
+    dots = torch.full((q * T, win), float("nan"))
+    writes = torch.zeros(q * T, win, dtype=torch.int64)
+    for t0, p, r0 in chunks(blk0 * B, win, n_rows, rt):
+        staged = blocks[t0 // B, :, t0 % B:t0 % B + rt]         # [d, rt]
+        j0 = t0 - r0.long()
+        assert bool(((j0 >= 0) & (j0 + rt <= win)).all())      # whole runs
+        lanes = j0[:, None] + torch.arange(rt)
+        dots[p[:, None], lanes] = slice_sum(terms[:, p // T], staged.T)
+        writes[p[:, None], lanes] += 1
+    return dots.reshape(q, T, win), aligned, writes.reshape(q, T, win)
+
+
+# name -> (T, n_pad, d, q): windows at both ends of the slab ("ends"), on a
+# few buckets ("few") or anywhere ("uniform")
+BLK_CASES = {
+    "d64 ends": (3, 2048, 64, 40, "ends"),
+    "d128 heavy sharing": (4, 2048, 128, 90, "few"),
+    "d128 sparse": (2, 8192, 128, 7, "uniform"),
+    "d256 ends": (2, 2048, 256, 30, "ends"),
+}
+
+
+def _blk_case(name, seed, dtype):
+    T, n_pad, d, q, how = BLK_CASES[name]
+    rng = np.random.default_rng(seed)
+    if how == "ends":          # table 0's first block and the last table's last
+        starts = np.where(rng.random((q, T)) < 0.5, rng.integers(0, 200, (q, T)),
+                          rng.integers(n_pad - 200, n_pad, (q, T)))
+    else:
+        starts = _starts(rng, how, q, T, n_pad)
+    x = rng.normal(size=(T, n_pad, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    qv = rng.normal(size=(q, d)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    packed = (np.clip(np.round(x / (np.abs(x).max() / 127)), -127, 127).astype(np.int8)
+              if dtype == torch.int8 else x)
+    packed = torch.from_numpy(packed).to(dtype)
+    return (blkslab.to_blk(packed), torch.from_numpy(starts.astype(np.int32)),
+            torch.from_numpy(qv))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("case", list(BLK_CASES))
+def test_blk_tile_schedule_matches_plain(case, dtype):
+    blk, starts, qv = _blk_case(case, 60 + list(BLK_CASES).index(case), dtype)
+    got, a_got, writes = emulate_blk(blk, starts, qv, PT)
+    want, a_want = blkslab.blk_window_dots_plain(blk, starts, qv, PT)
+    assert torch.equal(a_got, a_want)
+    assert torch.equal(writes, torch.ones_like(writes))
+    torch.testing.assert_close(got, want, **TOL)
+    if BLK_CASES[case][4] == "ends":      # the slab's first and last tiles are met
+        _, _, blk0 = blkslab._geometry_blk(blk, starts, PT)
+        L, npb = blk.shape[:2]
+        assert int(blk0.min()) == 0
+        assert int(blk0.max()) * 128 + got.shape[2] == L * npb * 128
+
+
+JAX_TOL = {torch.int8: dict(rtol=1e-5, atol=1e-4), torch.bfloat16: dict(rtol=1e-5, atol=1e-6)}
+
+
+def test_rounded_query_schedule_matches_the_jax_probe():
+    """The emulation against run_variant's "mxu_rep" (interpret mode) on
+    unit bf16 rows and unit f32 queries, which the probe rounds itself."""
+    p2 = probe_functions()["p2"]
+    packed, starts, qv = _p2_case("heavy sharing", 70, integer=False)
+    want = p2.run_variant(jnp.asarray(packed.float().numpy(), jnp.bfloat16),
+                          jnp.asarray(starts.numpy()), jnp.asarray(starts.numpy()),
+                          jnp.asarray(qv.numpy()), PT, 16, 4, "mxu_rep")[:qv.shape[0]]
+    got, _, _ = emulate_rounded(packed, starts, qv, PT)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_blk_schedule_matches_the_jax_probe(dtype):
+    p5 = probe_functions()["p5"]
+    blk, starts, qv = _blk_case("d128 heavy sharing", 71, dtype)
+    jblk = (jnp.asarray(blk.numpy()) if dtype == torch.int8
+            else jnp.asarray(blk.float().numpy(), jnp.bfloat16))
+    want_d, want_a = p5.blk_window_dots(jblk, jnp.asarray(starts.numpy()),
+                                        jnp.asarray(qv.numpy()), PT)
+    got_d, got_a, _ = emulate_blk(blk, starts, qv, PT)
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **JAX_TOL[dtype])
+
+
 # ---- the tensor-core wrappers' domain ----
 
 # name -> (kernel, slab dtype, d, the error its CUDA checks raise, or None)
@@ -316,15 +488,29 @@ DOMAIN = {
     "P6 d320": ("int4", torch.uint8, 320, ValueError),
     "P6 d64": ("int4", torch.uint8, 64, None),
     "P6 d256": ("int4", torch.uint8, 256, None),
+    "P2 f32": ("rounded", torch.float32, 128, TypeError),
+    "P2 int8": ("rounded", torch.int8, 128, TypeError),
+    "P2 bf16 d80": ("rounded", torch.bfloat16, 80, ValueError),
+    "P2 bf16 d320": ("rounded", torch.bfloat16, 320, ValueError),
+    "P2 bf16 d64": ("rounded", torch.bfloat16, 64, None),
+    "P2 bf16 d256": ("rounded", torch.bfloat16, 256, None),
+    "P5 f32": ("blk", torch.float32, 128, TypeError),
+    "P5 int8 d80": ("blk", torch.int8, 80, ValueError),
+    "P5 bf16 d320": ("blk", torch.bfloat16, 320, ValueError),
+    "P5 int8 d64": ("blk", torch.int8, 64, None),
+    "P5 bf16 d64": ("blk", torch.bfloat16, 64, None),
+    "P5 int8 d256": ("blk", torch.int8, 256, None),
+    "P5 bf16 d256": ("blk", torch.bfloat16, 256, None),
 }
 
 
 @pytest.mark.parametrize("case", list(DOMAIN))
 def test_tile_wrappers_check_their_domain(case):
-    """The checks `binned_dots` and `slab_window_dots_int4` run on CUDA
-    tensors before their launch, here on CPU tensors: the plain versions
-    take every case, the tensor-core kernels only int8 / bf16 (P3) or
-    uint8 (P6) slabs with d % 64 == 0, d <= 256."""
+    """The checks `binned_dots`, `slab_window_dots_int4`,
+    `rounded_query_dots` and `blk_window_dots` run on CUDA tensors before
+    their launch, here on CPU tensors: the plain versions take every case
+    (P2's every bf16 case), the tensor-core kernels only int8 / bf16 (P3,
+    P5), bf16 (P2) or uint8 (P6) slabs with d % 64 == 0, d <= 256."""
     kernel, dtype, d, error = DOMAIN[case]
     g = torch.Generator().manual_seed(5)
     q, T, n_pad = 6, 2, 1024
@@ -334,6 +520,14 @@ def test_tile_wrappers_check_their_domain(case):
     if kernel == "binned":
         binned.binned_dots_plain(packed, starts, qv, PT)
         check = lambda: binned._cuda_binned(packed, starts, qv, PT, 128)  # noqa: E731
+    elif kernel == "rounded":
+        if dtype == torch.bfloat16:
+            slabvariants.slab_window_variant_plain(packed, starts, qv, PT, "rounded_query")
+        check = lambda: slabvariants._cuda_rounded(packed, starts, qv, PT)  # noqa: E731
+    elif kernel == "blk":
+        blk = blkslab.to_blk(packed)
+        blkslab.blk_window_dots_plain(blk, starts, qv, PT)
+        check = lambda: blkslab._cuda_blk(blk, starts, qv, PT)  # noqa: E731
     else:
         int4slab.slab_window_dots_int4_plain(packed.view(torch.uint8), starts, qv, PT)
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The tensor-core P3 and P6 bodies against the row-wise ones, at the
-probes' operating point.
+"""The tensor-core probe bodies (P2 rounded_query, P3, P5, P6) against the
+row-wise ones, at the probes' operating point.
 
 On the probes' index (2M x 128 planted corpus, cosine k = 13, L = 8, window
 488 -> win 640; benchmarks/experiments/_common): P3 (binned top-1) at
 q = 8,192 on int8 and bf16 slabs, nbins 128 and 256: the tile-major kernel
 (`binned_dots`, csrc/probetile.cu) against the previous row-wise body
-(`binned_dots_rowwise`); P6 (int4 slabs) at q = 32,768: the tile-major
+(`binned_dots_rowwise`); P6 (int4 slabs) at q = 32,768, P2's rounded_query
+(bf16) and P5 (blocked int8 and bf16 slabs) at q = 8,192: the tile-major
 kernel against the row-wise body.
 Each is first held against its plain version on 2,048 queries (values
 within rtol 1e-5 / atol 1e-4, P3's winning lanes equal wherever a bin's
@@ -14,7 +15,11 @@ best two dots differ by more), then timed in alternating rounds (CUDA
 events, medians) beside the host-side schedule of the tile-major kernels
 alone (the sort of the pairs by first row) and, for the record, K1's torch
 work list at the same windows (`tile_plan`, ~25 small operations), with
-the bound of the call (ops/kernels/bounds.py).
+the bound of the call (ops/kernels/bounds.py).  Each timed call ends in a
+synchronize, so its time includes the host's dispatch of the wrapper's
+small operations; P2's and P5's rows also time ten tile-major calls back
+to back in one pair of events ("tiles_back_to_back", per call), where the
+host runs ahead and the device time shows.
 
     python3 tools/chip_probes/binned_designs.py [--rounds 15]
 
@@ -34,7 +39,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 from crypto_rec_tpu_torch.experiments import _common as C  # noqa: E402
 from crypto_rec_tpu_torch.models.lsh.index import pack_index  # noqa: E402
-from crypto_rec_tpu_torch.ops.kernels import binned, bounds, int4slab  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels import (  # noqa: E402
+    binned, blkslab, bounds, int4slab, slabvariants,
+)
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (  # noqa: E402
     _geometry, slab_window_dots_plain, tile_plan, window_len,
 )
@@ -119,6 +126,66 @@ def p6_row(p, rounds):
                 share_of_bound={k: b["bound_ms"] / ms[k] for k in ("tiles", "rowwise")})
 
 
+def dots_row(kernel, geometry, designs, plain, row0, win, n_rows, row_bytes, d, qv,
+             rounds):
+    """A dots-writing kernel's designs (name -> fn of no argument) held
+    against `plain` on the first CHECK_Q queries (fn / plain of a query
+    count), then timed with the sort of its pairs."""
+    dp, ap = plain(CHECK_Q)
+    errs = {}
+    for name, fn in designs.items():
+        dk, ak = fn(CHECK_Q)
+        if not torch.equal(ak, ap) or not torch.allclose(dk, dp, **TOL):
+            raise AssertionError(f"{kernel} {name}: kernel and plain differ")
+        errs[name] = float((dk - dp).abs().max())
+        del dk
+    del dp
+    t = C.timed_alternating({**{k: (lambda f=f: f(None)) for k, f in designs.items()},
+                             "sort": lambda: torch.sort(row0.reshape(-1)),
+                             "tiles_x10": lambda: [designs["tiles"](None) for _ in range(10)]},
+                            qv.device, rounds)
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    ms["tiles_back_to_back"] = ms.pop("tiles_x10") / 10
+    b = bounds.window_call(row0, win, n_rows, row_bytes, d, inputs=(qv,),
+                           outputs=designs["tiles"](None))
+    print(f"{kernel} {geometry}: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); max |err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    return dict(kernel=kernel, geometry=geometry, max_abs_err=errs, ms=ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                share_of_bound={k: b["bound_ms"] / ms[k] for k in designs})
+
+
+def p2_row(p, rounds):
+    """P2 rounded_query (bf16): tile-major against the row-wise body."""
+    def args(q):
+        return (p.packed, p.s0[:q], p.qv[:q], p.per_table)
+    _, _, row0, _, _ = _geometry(p.packed, p.s0, None, p.per_table, False)
+    return dots_row(
+        "P2 rounded_query", f"bf16, q = {Q3}",
+        {"tiles": lambda q: slabvariants.rounded_query_dots(*args(q)),
+         "rowwise": lambda q: slabvariants.slab_window_variant_rowwise(*args(q))},
+        lambda q: slabvariants.slab_window_variant_plain(*args(q), "rounded_query"),
+        row0, window_len(p.per_table), p.packed.shape[0] * p.packed.shape[1],
+        p.packed.shape[2] * 2, p.packed.shape[2], p.qv, rounds)
+
+
+def p5_row(p, rounds):
+    """P5 (blocked slabs): the tile-major kernel against the row-wise body."""
+    blk = blkslab.to_blk(p.packed)
+
+    def args(q):
+        return (blk, p.s0[:q], p.qv[:q], p.per_table)
+    win, _, blk0 = blkslab._geometry_blk(blk, p.s0, p.per_table)
+    return dots_row(
+        "P5 blk_window_dots", f"{str(blk.dtype)[6:]}, q = {Q3}",
+        {"tiles": lambda q: blkslab.blk_window_dots(*args(q)),
+         "rowwise": lambda q: blkslab.blk_window_dots_rowwise(*args(q))},
+        lambda q: blkslab.blk_window_dots_plain(*args(q)),
+        blk0 * blkslab.B, win, p.packed.shape[0] * p.packed.shape[1],
+        p.packed.shape[2] * p.packed.element_size(), p.packed.shape[2], p.qv, rounds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=15)
@@ -134,9 +201,13 @@ def main(argv=None) -> int:
     rows = []
     for dt in (torch.int8, torch.bfloat16):
         pidx = pack_index(index, corpus, dtype=dt)
-        rows += p3_rows(C.probe_index(pidx, queries[:Q3]), args.rounds)
+        p = C.probe_index(pidx, queries[:Q3])
+        rows += p3_rows(p, args.rounds)
         if dt == torch.int8:
             rows.append(p6_row(C.probe_index(pidx, queries), args.rounds))
+        else:
+            rows.append(p2_row(p, args.rounds))
+        rows.append(p5_row(p, args.rounds))
         del pidx
         torch.cuda.empty_cache()
     line = json.dumps({"card": card, "rows": rows})

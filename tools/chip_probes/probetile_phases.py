@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the tile-major P3 / P6 kernel's time goes (csrc/probetile.cu).
+"""Where the tile-major probe kernels' time goes (csrc/probetile.cu).
 
 No profiler on the card splits a kernel's time by phase, so this compiles
 copies of probetile.cu with one phase cut out and times them against the
 whole kernel in alternating rounds (CUDA events, medians), at the probes'
 operating point (2M x 128 planted corpus, cosine k = 13, L = 8, window 488;
-P3 binned top-1 on int8 slabs, nbins 128, q = 8,192; P6 int4, q = 32,768):
+P3 binned top-1 on int8 slabs, nbins 128, q = 8,192; P6 int4, q = 32,768;
+P2 rounded_query on bf16 slabs and P5 on blocked int8 and bf16 slabs,
+q = 8,192):
 
 - full:       the kernel as built for the port;
-- no_epi:     no epilogue (P3's key combine, P6's dots writes);
+- no_epi:     no epilogue (P3's key combine, the others' dots writes);
 - no_mma:     no tensor-core product (the epilogue writes zeros);
 - loads_only: neither, nor the query staging: the sort, `tile_bounds`, each
               tile's loads and upcast, and the block's barriers.
@@ -39,6 +41,8 @@ sys.path.insert(0, ROOT)
 from crypto_rec_tpu_torch.experiments import _common as C  # noqa: E402
 from crypto_rec_tpu_torch.models.lsh.index import pack_index  # noqa: E402
 from crypto_rec_tpu_torch.ops.kernels import build, int4slab  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels.blkslab import B, _geometry_blk, to_blk  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels.probetile import KINDS, tile_schedule  # noqa: E402
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (  # noqa: E402
     _DTYPE_CODE, _geometry, probe_tile_rows,
 )
@@ -74,7 +78,7 @@ def build_variants() -> dict:
         if job.wait() != 0:
             raise RuntimeError(f"nvcc failed on the {name} copy")
         lib = ctypes.CDLL(os.path.join(out, f"{name}.so"))
-        for fn in ("crt_binned_tile_dots", "crt_int4_tile_dots"):
+        for fn in ("crt_binned_tile_dots", "crt_tile_dots"):
             getattr(lib, fn).argtypes = list(build._SIGNATURES[fn])
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -93,8 +97,7 @@ def p3_call(lib, p):
     row0 = row0.contiguous()
 
     def run():
-        sr, order = torch.sort(row0.reshape(-1))
-        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32, device=dev)
+        sr, order, bounds = tile_schedule(row0, n_rows, rt)
         build.check(lib.crt_binned_tile_dots(
             p.packed.data_ptr(), p.qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
             bounds.data_ptr(), keys.data_ptr(), vals.data_ptr(), pos.data_ptr(), sr.numel(),
@@ -104,24 +107,44 @@ def p3_call(lib, p):
     return run
 
 
-def p6_call(lib, p4, p):
-    """slab_window_dots_int4's launch on a library, from the sort on."""
-    win, _, row0 = int4slab._geometry4(p4, p.s0, p.per_table)
-    q, T = p.s0.shape
-    d = p4.shape[2]
-    rt, n_rows = probe_tile_rows(d) // 2, p4.shape[0] * p4.shape[1]
-    dots = torch.empty(q, T, win, device=p4.device)
+def dots_call(lib, slab, qv, row0, win, d, n_rows, kind, rt):
+    """`tile_dots`' launch of a dots-writing kind (P2, P5, P6) on a
+    library, from the sort on."""
+    q, T = row0.shape
+    dots = torch.empty(q, T, win, device=slab.device)
     row0 = row0.contiguous()
 
     def run():
-        sr, order = torch.sort(row0.reshape(-1))
-        bounds = torch.empty(2, -(-n_rows // rt), dtype=torch.int32, device=p4.device)
-        build.check(lib.crt_int4_tile_dots(
-            p4.data_ptr(), p.qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
-            bounds.data_ptr(), dots.data_ptr(), sr.numel(), T, win, d, n_rows, rt,
-            torch.cuda.current_stream().cuda_stream), "P6")
+        sr, order, bounds = tile_schedule(row0, n_rows, rt)
+        build.check(lib.crt_tile_dots(
+            slab.data_ptr(), qv.data_ptr(), sr.data_ptr(), order.data_ptr(),
+            bounds.data_ptr(), dots.data_ptr(), sr.numel(), T, win, d, n_rows, KINDS[kind],
+            rt, torch.cuda.current_stream().cuda_stream), kind)
         return dots
     return run
+
+
+def p6_call(lib, p4, p):
+    win, _, row0 = int4slab._geometry4(p4, p.s0, p.per_table)
+    d = p4.shape[2]
+    return dots_call(lib, p4, p.qv, row0, win, d, p4.shape[0] * p4.shape[1], "int4",
+                     probe_tile_rows(d) // 2)
+
+
+def p2_call(lib, p):
+    win, _, row0, _, _ = _geometry(p.packed, p.s0, None, p.per_table, False)
+    d = p.packed.shape[2]
+    return dots_call(lib, p.packed, p.qv, row0, win, d,
+                     p.packed.shape[0] * p.packed.shape[1], "rounded_query",
+                     probe_tile_rows(d))
+
+
+def p5_call(lib, blk, p):
+    win, _, blk0 = _geometry_blk(blk, p.s0, p.per_table)
+    L, npb, d, _ = blk.shape
+    kind = "blk_int8" if blk.dtype == torch.int8 else "blk_bf16"
+    return dots_call(lib, blk, p.qv, blk0 * B, win, d, L * npb * B, kind,
+                     probe_tile_rows(d))
 
 
 def main(argv=None) -> int:
@@ -133,11 +156,18 @@ def main(argv=None) -> int:
     libs = build_variants()
     dev = torch.device("cuda")
     corpus, queries, _ = C.make_corpus("planted", C.N, 32768, 0, dev)
-    pidx = pack_index(C.build_cosine(corpus, 40), corpus, dtype=torch.int8)
+    index = C.build_cosine(corpus, 40)
+    pidx = pack_index(index, corpus, dtype=torch.int8)
     p3, p6 = C.probe_index(pidx, queries[:8192]), C.probe_index(pidx, queries)
-    p4 = int4slab.repack_int4(p6.packed)
+    p4, b8 = int4slab.repack_int4(p6.packed), to_blk(p3.packed)
+    p16 = C.probe_index(pack_index(index, corpus, dtype=torch.bfloat16), queries[:8192])
+    b16 = to_blk(p16.packed)
+    del pidx
     for label, make in ((f"P3 int8 nbins {NBINS}, q = 8192", lambda lib: p3_call(lib, p3)),
-                        ("P6 int4, q = 32768", lambda lib: p6_call(lib, p4, p6))):
+                        ("P6 int4, q = 32768", lambda lib: p6_call(lib, p4, p6)),
+                        ("P2 rounded_query bf16, q = 8192", lambda lib: p2_call(lib, p16)),
+                        ("P5 int8, q = 8192", lambda lib: p5_call(lib, b8, p3)),
+                        ("P5 bf16, q = 8192", lambda lib: p5_call(lib, b16, p16))):
         t = C.timed_alternating({name: make(lib) for name, lib in libs.items()}, dev,
                                 args.rounds)
         ms = {k: statistics.median(v) for k, v in t.items()}
