@@ -41,8 +41,9 @@ engines, in twenty-two phases; each phase raises on failure:
      and K1 without the mask, each against its plain version (dots within
      rtol 1e-5 / atol 1e-4, i8_dot and load_floor exact, binned winners
      equal away from near-ties) on 2,048 queries and timed against it
-     (the binned and int4 kernels, tile-major on the tensor cores, also
-     against their previous row-wise bodies in the same rounds);
+     (the tile-major binned, int4, variant (load_floor, rounded_query,
+     i8_dot) and blocked kernels also against their previous row-wise
+     bodies in the same rounds);
      the recall of each retrieval path against its plain path (within
      0.002); then one counted run of the six probes' run_* functions;
  13. the recommender program: `crypto_rec_tpu_torch.main -validate` (default
@@ -371,11 +372,11 @@ def _counters():
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
-        rounded_query_dots, slab_window_variant,
+        i8_dots, load_floor, rounded_query_dots,
     )
 
     return (signproj_bucket_ids, slab_window_dots, binned_dots, slab_window_dots_int4,
-            slab_window_variant, rounded_query_dots, blk_window_dots)
+            load_floor, rounded_query_dots, i8_dots, blk_window_dots)
 
 
 def zero_counts():
@@ -663,15 +664,17 @@ def _same_recall(label, ids_k, ids_p, truth):
     return dict(recall=rk, plain_recall=rp)
 
 
-def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None):
+def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None, bound=None):
     """Kernel and plain version (and the kernel's previous row-wise body:
-    K1's, P2's rounded_query, P3's, P5's, P6's) in alternating rounds, with
-    the bound of the kernel's call on its windows: covered slab rows x
+    K1's, P2's, P3's, P4's, P5's, P6's) in alternating rounds, with the
+    bound of the kernel's call on its windows: covered slab rows x
     row_bytes, the queries and the kernel's outputs, 2 d FLOP a window lane
     on bf16 tensor cores.  windows: (row0 [q, L] absolute first rows, win)
     of the kernel's own geometry; None takes K1's (32-row aligned starts).
-    No one PyTorch call computes a probe kernel's function (a gather and an
-    einsum are two): library_ms is None."""
+    bound: a function of the kernel's outputs giving the bound in its
+    place (P2 / P4: `bounds.variant_call`).  No one PyTorch call computes
+    a probe kernel's function (a gather and an einsum are two): library_ms
+    is None."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry, window_len
 
@@ -679,6 +682,8 @@ def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None):
     if rowwise is None:
         del t["prev_ms"]
     outs = [o for o in kern() if isinstance(o, torch.Tensor)]
+    if bound is not None:
+        return with_bound(dict(library_ms=None, **t), bound(outs))
     row0, win = windows or (_geometry(p.packed, p.s0, None, p.per_table, False)[2],
                             window_len(p.per_table))
     b = bounds.window_call(row0, win, p.packed.shape[0] * p.packed.shape[1], row_bytes,
@@ -765,11 +770,14 @@ def check_int4(p):
 
 
 def check_variants(p16, p8):
-    """P2 / P4 variant modes against their plain versions: load_floor
-    output and XOR fold exact (bf16 and int8), rounded_query (bf16, the
-    tile-major kernel) within DOT_TOL, i8_dot (int8) bit for bit; times at
-    q = PQ, rounded_query's beside its row-wise body; the recall of the
-    i8_dot retrieval path against its plain path."""
+    """P2 / P4 variant modes, the tile-major kernels of probetile.cu,
+    against their plain versions: load_floor output and XOR fold exact
+    (bf16 and int8), rounded_query (bf16) within DOT_TOL, i8_dot (int8) bit
+    for bit; times at q = PQ, each beside its row-wise body in the same
+    rounds, and its bound (`bounds.variant_call`: load_floor no
+    operations, i8_dot int8 tensor cores with int8 queries); the recall of
+    the i8_dot retrieval path against its plain path."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_topk
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
         quantize_queries, slab_window_variant, slab_window_variant_plain,
@@ -793,22 +801,22 @@ def check_variants(p16, p8):
         else:
             err = 0.0
         a = (p.packed, p.s0, qv, p.per_table, mode)
-        rowwise = ((lambda: slab_window_variant_rowwise(*a[:4]))
-                   if mode == "rounded_query" else None)
         res = dict(geometry=f"{mode} {dname}, q = {PQ}", max_abs_err=err,
                    **_timed_pair(lambda: slab_window_variant(*a),
                                  lambda: slab_window_variant_plain(*a), p,
                                  p.packed.shape[2] * p.packed.element_size(),
-                                 rowwise=rowwise))
+                                 rowwise=lambda: slab_window_variant_rowwise(*a),
+                                 bound=lambda outs: bounds.variant_call(*a[:3], p.per_table,
+                                                                        mode, outs)))
         if mode == "i8_dot":
             ids = [slab_topk(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
                    for f in (slab_window_variant, slab_window_variant_plain)]
             res.update(_same_recall("P4 mxu_i8", *ids, p.true_idx))
-        prev = f"row-wise {res['prev_ms']:.3f} ms, " if rowwise else ""
         log(f"phase 12 slab_window_variant {mode} {dname}: max |err| {err:.3g} over "
             f"{CHECK_Q} queries{' (output and fold exact)' if len(got) == 3 else ''}; q={PQ}: "
-            f"kernel {res['ms']:.3f} ms, {prev}plain {res['plain_ms']:.3f} ms, bound "
-            f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
+            f"tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+            f"({100 * res['share_of_bound']:.1f}%, {res['bound_by']})")
         out.append(res)
     return out
 
@@ -2260,17 +2268,21 @@ def main() -> int:
                   "benchmarks/experiments/probe_r3_binned.py:98", probe_checks["binned"],
                   note="tile-major on the tensor cores; prev_ms: the row-wise body "
                        "(csrc/binned.cu) in the same rounds"),
-        probe_row("slab_window_variant", "slabvariants.cu",
+        probe_row("load_floor", "probetile.cu",
                   "benchmarks/experiments/probe_r3_split.py:156", variants[:2],
-                  note="mode load_floor (zeros), the row-wise body"),
+                  note="mode load_floor (zeros), tile-major with no product (bf16, int8); "
+                       "prev_ms: the row-wise body (csrc/slabvariants.cu) in the same "
+                       "rounds"),
         probe_row("rounded_query_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r3_split.py:156", variants[2:3],
                   note="mode rounded_query (mxu_rep, mxu_tile), tile-major on the tensor "
                        "cores; prev_ms: the row-wise body (csrc/slabvariants.cu) in the "
                        "same rounds"),
-        probe_row("slab_window_variant", "slabvariants.cu",
+        probe_row("i8_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r3_final.py:99", variants[3:],
-                  note="mode i8_dot (mxu_i8)"),
+                  note="mode i8_dot (mxu_i8), tile-major on the int8 tensor cores; "
+                       "prev_ms: the row-wise body (csrc/slabvariants.cu) in the same "
+                       "rounds"),
         probe_row("blk_window_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r4_blk.py:132", probe_checks["blk"],
                   note="tile-major on the tensor cores; prev_ms: the row-wise body "

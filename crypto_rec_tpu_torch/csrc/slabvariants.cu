@@ -1,4 +1,6 @@
-// P2 / P4: the slab-window loop with other scoring bodies.
+// P2 / P4: the slab-window loop with other scoring bodies, row-wise (the
+// first design, kept for timing: the probes run the tile-major bodies of
+// probetile.cu; ops/kernels/slabvariants.py `slab_window_variant_rowwise`).
 //
 // Replaces the TPU kernels benchmarks/experiments/probe_r3_split.py
 // (run_variant, pallas_call at :156; body variant_kernel :90-139) and
@@ -19,15 +21,15 @@
 //                 __dp4a and an exact int32 sum, written as f32 (|dot| <=
 //                 128 x 127 x 127 < 2^24, so the f32 is exact).
 //
-// What bounds it on the H100: the same window bytes as K1 (at q = 8,192,
-// T = 8, win = 640, d = 128: 5.4 GB int8 / 10.7 GB bf16 read, 168 MB of
-// output written).  load_floor does no arithmetic but the same loads and
-// output writes (plus one atomic per warp), so its time bounds K1's loop,
-// not the loads alone; i8_dot does a quarter of K1's instructions per int8
-// chunk.
+// What bounds it on the H100: the same window bytes as K1's row-wise body
+// (at q = 8,192, T = 8, win = 640, d = 128: 5.4 GB int8 / 10.7 GB bf16
+// read, 168 MB of output written), every window read from memory though
+// the windows cover only 1.86 GB (3.7 GB) of slab rows.  load_floor does
+// no arithmetic but the same loads and output writes (plus one atomic per
+// warp), so its time bounds this access pattern, not the loads alone.
 //
-// Design: K1's (one block per (query, window), groups of G lanes each
-// reading one slab row as 16-byte chunks, a shuffle tree per row).
+// Design: K1's first (one block per (query, window), groups of G lanes
+// each reading one slab row as 16-byte chunks, a shuffle tree per row).
 
 #include <cuda_bf16.h>
 
@@ -40,15 +42,6 @@ using namespace slabrow;
 constexpr int kThreads = 128;
 
 enum Mode { kLoadFloor = 0, kRoundedQuery = 1, kI8Dot = 2 };
-
-// slab element e of a 16-byte-aligned row, as f32
-template <int DT>
-__device__ __forceinline__ float element(const uint8_t* row, int e) {
-  if constexpr (DT == kF32) return reinterpret_cast<const float*>(row)[e];
-  if constexpr (DT == kBF16)
-    return __uint_as_float((uint32_t)reinterpret_cast<const uint16_t*>(row)[e] << 16);
-  return (float)reinterpret_cast<const int8_t*>(row)[e];
-}
 
 __device__ __forceinline__ int dp4a_chunk(uint4 v, const int* q, int acc) {
   acc = __dp4a((int)v.x, q[0], acc);

@@ -1,7 +1,8 @@
 // Shared pieces of the tensor-core slab kernels (slabtile.cu and
-// probetile.cu): cp.async, ldmatrix (plain and .trans) and mma.sync m16n8k16 bf16 with f32
-// accumulation, the XOR swizzle of a staged bf16 tile, and the three-term
-// bf16 split of an f32 query.
+// probetile.cu): cp.async, ldmatrix (plain and .trans), mma.sync m16n8k16
+// bf16 with f32 accumulation and m16n8k32 s8 with s32 accumulation, the XOR
+// swizzles of a staged bf16 or int8 tile, and the three-term bf16 split of
+// an f32 query.
 
 #pragma once
 
@@ -51,11 +52,35 @@ __device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
 }
 
+// int8 x int8 -> int32, exact: the fragments hold 4 int8 elements a
+// register where the bf16 ones hold 2, in the same bytes (A: row g, bytes
+// 4 tig.. of the k step's first and second 16; B the same with the pair on
+// n), so one ldmatrix.x4 (b16) reads either
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // element offset of 16-byte chunk c of row r in a [rows][d] bf16 block
 // (d >= 64: the 8 rows that one ldmatrix matrix reads at one chunk fall on
 // 8 distinct chunks of a 128-byte span)
 __device__ __forceinline__ int swz(int r, int c, int d) {
   return r * d + ((c ^ (r & 7)) << 3);
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows][d] int8 block, d % 64
+// == 0.  A row of d % 128 == 0 holds whole 128-byte lines: as `swz`.  At
+// d = 64 and 192 a row ends half way through a line, so rows r and r + 1
+// start on the line's two halves and the XOR takes the row pair's index
+// into the chunk's low two bits (staying inside the row's group of four):
+// either way the 8 rows one ldmatrix matrix reads at one chunk sit on 8
+// distinct 16-byte bank groups
+__device__ __forceinline__ int swz8(int r, int c, int d) {
+  return r * d + ((c ^ (d % 128 ? (r >> 1) & 3 : r & 7)) << 4);
 }
 
 // q = hi + mid + lo, each term the bf16 rounding of what the ones before it

@@ -8,10 +8,12 @@ the call's windows, counted on the device in 32-row blocks from the windows'
 first rows: a row that many windows share counts once.
 
 Peaks (NVIDIA's data sheet, dense, at the full 700 W): bf16 tensor cores
-989 TFLOP/s (K1 on int8 and bf16 slabs, and the probe kernels P1-P6), f32
-FFMA 67 TFLOP/s (K2, whose hash parity rules out TF32; K1 on f32 slabs,
-which are not exact in bf16 and take FFMA; K1's other rows show it as the
-floor of a design without tensor cores).
+989 TFLOP/s (K1 on int8 and bf16 slabs, and the probe kernels P1-P3, P5,
+P6 and P2's rounded_query), int8 tensor cores 1,979 TOP/s (P4's i8_dot,
+int8 x int8 -> int32), f32 FFMA 67 TFLOP/s (K2, whose hash parity rules out
+TF32; K1 on f32 slabs, which are not exact in bf16 and take FFMA; K1's
+other rows show it as the floor of a design without tensor cores).  P2's
+load_floor does no arithmetic: 0 operations, bound by its bytes alone.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC = "bf16 tensor cores"
+INT8_TC = "int8 tensor cores"
 F32_FFMA = "f32 FFMA"
-PEAK_FLOPS = {BF16_TC: 989e12, F32_FFMA: 67e12}
+PEAK_FLOPS = {BF16_TC: 989e12, INT8_TC: 1979e12, F32_FFMA: 67e12}
 BLOCK_ROWS = 32
 
 
@@ -49,23 +52,45 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: float, flops: float, peak: str) -> dict:
-    """-> {bound_ms, bound_by ("bytes" or "operations"), peak, bytes, flops}."""
+def bound(nbytes: float, flops: float, peak) -> dict:
+    """-> {bound_ms, bound_by ("bytes" or "operations"), peak, bytes, flops};
+    peak None: a call with no arithmetic (flops 0)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[peak]
+    t_ops = flops / PEAK_FLOPS[peak] if peak is not None else 0.0
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 peak=peak, bytes=int(nbytes), flops=float(flops))
 
 
 def window_call(row0: torch.Tensor, win: int, n_rows: int, row_bytes: float,
-                d: int, inputs=(), outputs=(), peak: str = BF16_TC) -> dict:
+                d: int, inputs=(), outputs=(), peak=BF16_TC) -> dict:
     """Bound of a slab-window kernel call: the covered slab rows x
     row_bytes plus `inputs` (queries, ...) and `outputs` (dots, starts, ...)
-    read or written once; 2 d FLOP for every window lane."""
+    read or written once; 2 d operations for every window lane on `peak`'s
+    unit (None: no arithmetic)."""
     nbytes = (covered_rows(row0, win, n_rows) * row_bytes + tensor_bytes(*inputs)
               + tensor_bytes(*outputs))
-    return bound(nbytes, 2.0 * row0.numel() * win * d, peak)
+    return bound(nbytes, 2.0 * row0.numel() * win * d if peak is not None else 0.0, peak)
+
+
+# the unit each `slab_window_variant` mode's operations run on
+VARIANT_PEAK = {"load_floor": None, "rounded_query": BF16_TC, "i8_dot": INT8_TC}
+
+
+def variant_call(packed: torch.Tensor, starts, queries, per_table: int, mode: str,
+                 outputs=()) -> dict:
+    """P2 / P4's bound for one `slab_window_variant` call on K1's windows:
+    the covered slab rows, the queries as the mode reads them (rounded_query
+    f32, i8_dot int8; load_floor reads none) and `outputs` (its results);
+    operations on `VARIANT_PEAK[mode]`."""
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry
+
+    win, _, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    d = packed.shape[2]
+    return window_call(row0, win, packed.shape[0] * packed.shape[1],
+                       d * packed.element_size(), d,
+                       inputs=() if mode == "load_floor" else (queries,),
+                       outputs=outputs, peak=VARIANT_PEAK[mode])
 
 
 def k1_call(packed: torch.Tensor, starts, sizes, queries, per_table: int,

@@ -52,6 +52,9 @@ _SIGNATURES = {
     "crt_int4_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (slab, queries, row0, pair, bounds, dots, P, T, win, d, n_rows, kind, rt, stream)
     "crt_tile_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (slab, row0, pair, bounds, pair_row0, out, fold,
+    #  P, q, T, win, d, n_rows, dtype, rt, stream)
+    "crt_tile_load_floor": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, out, sink, q, T, win, d, mode, dtype, stream)
     "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)

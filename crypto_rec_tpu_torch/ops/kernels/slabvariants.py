@@ -9,26 +9,35 @@ aligned + j):
 
 - ``load_floor`` (P2 "zeros"): every window byte is loaded, and the
   output is the first element of table 0's window, as f32, broadcast to
-  [q, L, win].  The time bounds K1's loop from below: the same window
-  loads and [q, L, win] output writes, no arithmetic.  A third output is
-  the XOR of every window's 32-bit words per query, which the kernel
-  folds to keep its loads live and the plain version reads every window
-  byte to reproduce.
+  [q, L, win].  A third output is the XOR of every window's 32-bit words
+  per query, which the kernel folds to keep its loads live and the plain
+  version reads every window byte to reproduce.
 - ``rounded_query`` (P2 "mxu_rep" / "mxu_tile", bf16 slabs): dots against
   the query rounded to bf16, f32 products and sum.
 - ``i8_dot`` (P4 "mxu_i8", int8 slabs): the int8 row against an int8
   query (`quantize_queries`), an exact integer sum written as f32.
 
-A CUDA tensor launches a Hopper kernel (or raises): ``rounded_query``
-the tile-major tensor-core kernel in `csrc/probetile.cu`
-(`rounded_query_dots`: each covered slab row staged once as bf16, dotted
-with mma.sync against one bf16 term of every query whose window covers it,
-the schedule found on the device from the pairs sorted by first row; bf16
-slabs with d % 64 == 0 and d <= 256), ``load_floor`` and ``i8_dot`` the
-row-wise `variant_kernel` in `csrc/slabvariants.cu`, one block per window.
-A CPU tensor runs `slab_window_variant_plain`.  rounded_query's previous
-design, the row-wise body, stays as `slab_window_variant_rowwise` for
-side-by-side timing on the card; no probe path calls it.
+A CUDA tensor launches a Hopper kernel (or raises), each mode the
+tile-major kernels of `csrc/probetile.cu` (one tile of slab rows a block,
+each covered row read once, the schedule found on the device from the
+pairs sorted by first row):
+
+- rounded_query: `rounded_query_dots`, the tile's bf16 rows dotted with
+  mma.sync against one bf16 term of every query whose window covers them
+  (bf16 slabs, d % 64 == 0, d <= 256);
+- i8_dot: `i8_dots`, the tile's int8 rows as stored against the int8
+  queries on the int8 tensor cores (m16n8k32, int32 sums: bit for bit the
+  plain version; int8 slabs and queries, d % 64 == 0, d <= 256);
+- load_floor: `load_floor`, no product: each covered row loaded once and
+  folded, each window lane written once.  Its time is the floor of the
+  tile-major family's loads and output writes (int8, bf16 and f32 slabs,
+  d % 16 == 0, rows of <= 2048 B, as the row-wise body).
+
+A CPU tensor runs `slab_window_variant_plain`.  The previous design, the
+row-wise `variant_kernel` in `csrc/slabvariants.cu` (one block per
+window, every window read from memory), stays as
+`slab_window_variant_rowwise` for side-by-side timing on the card; no
+probe path calls it.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from __future__ import annotations
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
-from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
+from crypto_rec_tpu_torch.ops.kernels.probetile import (
+    BYTE_TILE_ROWS, tile_dots, tile_queries, tile_schedule,
+)
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _DTYPE_CODE, _check_tile_slab, _geometry, check_row_slab, probe_tile_rows,
     slab_window_dots_plain, window_chunks,
@@ -167,6 +178,89 @@ def rounded_query_dots(
 rounded_query_dots.launches = 0
 
 
+def _cuda_i8(packed, starts, queries, per_table):
+    """Checks and geometry of the tensor-core i8_dot body -> (aligned, row0,
+    16-byte aligned int8 queries, dots [q, T, win])."""
+    _check_mode(packed, queries, "i8_dot")
+    check_row_slab("i8_dots", packed, starts, queries, (torch.int8,))
+    _check_tile_slab(packed)
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    return aligned, row0, tile_queries(queries, torch.int8), dots
+
+
+def i8_dots(
+    packed: torch.Tensor,    # [L, n_pad, d] int8 CSR slabs
+    starts: torch.Tensor,    # [q, L] window starts within a table
+    queries: torch.Tensor,   # [q, d] int8 (`quantize_queries`)
+    per_table: int,
+):
+    """`slab_window_variant`'s i8_dot -> (dots [q, L, win] f32, aligned
+    starts [q, L] int32, local to each table).
+
+    CPU tensors take the plain version; CUDA tensors (int8 slabs and
+    queries, d % 64 == 0, d <= 256) the tile-major Hopper kernel on the
+    int8 tensor cores; the sort of the pairs runs here on the device,
+    inside the kernel's time."""
+    if not packed.is_cuda:
+        return slab_window_variant_plain(packed, starts, queries, per_table, "i8_dot")
+    aligned, row0, qv, dots = _cuda_i8(packed, starts, queries, per_table)
+    if starts.shape[0] == 0:
+        return dots, aligned
+    tile_dots("i8_dots", packed, qv, row0, dots, packed.shape[2],
+              packed.shape[0] * packed.shape[1], "i8_dot", BYTE_TILE_ROWS)
+    i8_dots.launches += 1
+    return dots, aligned
+
+
+i8_dots.launches = 0
+
+
+def _cuda_floor(packed, starts, queries, per_table):
+    """Checks and geometry of the tile-major load_floor -> (win, aligned,
+    row0, out [q, T, win] f32, fold [q] int32, zeroed by the kernel)."""
+    _check_mode(packed, queries, "load_floor")
+    check_row_slab("load_floor", packed, starts, queries, _DTYPE_CODE)
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    out = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+    return win, aligned, row0, out, torch.empty(q, dtype=torch.int32, device=packed.device)
+
+
+def load_floor(
+    packed: torch.Tensor,    # [L, n_pad, d] int8 / bf16 / f32 CSR slabs
+    starts: torch.Tensor,    # [q, L] window starts within a table
+    queries: torch.Tensor,   # [q, d] (not read)
+    per_table: int,
+):
+    """`slab_window_variant`'s load_floor -> (out [q, L, win] f32, aligned
+    starts [q, L] int32, local to each table, fold [q] int32).
+
+    CPU tensors take the plain version; CUDA tensors (d % 16 == 0, rows of
+    <= 2048 B) the tile-major Hopper kernel with no product; the sort of
+    the pairs runs here on the device, inside the kernel's time."""
+    if not packed.is_cuda:
+        return slab_window_variant_plain(packed, starts, queries, per_table, "load_floor")
+    win, aligned, row0, out, fold = _cuda_floor(packed, starts, queries, per_table)
+    q, T = starts.shape
+    L, n_pad, d = packed.shape
+    with torch.cuda.device(packed.device):
+        sr, order, bounds = tile_schedule(row0, L * n_pad, BYTE_TILE_ROWS)
+        err = build.library().crt_tile_load_floor(
+            packed.data_ptr(), sr.data_ptr(), order.data_ptr(), bounds.data_ptr(),
+            row0.data_ptr(), out.data_ptr(), fold.data_ptr(), sr.numel(), q, T, win, d,
+            L * n_pad, _DTYPE_CODE[packed.dtype], BYTE_TILE_ROWS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "load_floor")
+    load_floor.launches += 1
+    return out, aligned, fold
+
+
+load_floor.launches = 0
+
+
 def slab_window_variant(
     packed: torch.Tensor,
     starts: torch.Tensor,
@@ -178,19 +272,15 @@ def slab_window_variant(
     to each table), and for load_floor a third output, the [q] int32 XOR
     fold.  Arguments as the plain version.
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernels:
-    rounded_query `rounded_query_dots` (counted there), load_floor and
-    i8_dot the row-wise body."""
+    CPU tensors take the plain version; CUDA tensors the tile-major Hopper
+    kernel of the mode, each counted in its wrapper: `rounded_query_dots`,
+    `i8_dots`, `load_floor`."""
     if not packed.is_cuda:
         return slab_window_variant_plain(packed, starts, queries, per_table, mode)
-    if mode == "rounded_query":
-        return rounded_query_dots(packed, starts, queries, per_table)
-    out = _variant_launch("slab_window_variant", packed, starts, queries, per_table, mode)
-    slab_window_variant.launches += 1
-    return out
-
-
-slab_window_variant.launches = 0
+    _check_mode(packed, queries, mode)
+    kernel = {"rounded_query": rounded_query_dots, "i8_dot": i8_dots,
+              "load_floor": load_floor}[mode]
+    return kernel(packed, starts, queries, per_table)
 
 
 def slab_window_variant_rowwise(
@@ -198,17 +288,17 @@ def slab_window_variant_rowwise(
     starts: torch.Tensor,
     queries: torch.Tensor,
     per_table: int,
+    mode: str = "rounded_query",
 ):
-    """rounded_query on its previous design, the row-wise body (one block
-    per window, `csrc/slabvariants.cu`), kept so a run on the card can time
-    it beside `rounded_query_dots` on the same inputs.  Arguments as
-    `rounded_query_dots` (any d % 16 == 0); CPU tensors take the plain
-    version."""
+    """Every mode on the previous design, the row-wise body (one block per
+    window, `csrc/slabvariants.cu`), kept so a run on the card can time it
+    beside the tile-major kernels on the same inputs.  Arguments and
+    outputs as `slab_window_variant` (any d % 16 == 0 with rows of <= 2048
+    B); CPU tensors take the plain version."""
     if not packed.is_cuda:
-        return slab_window_variant_plain(packed, starts, queries, per_table,
-                                         "rounded_query")
+        return slab_window_variant_plain(packed, starts, queries, per_table, mode)
     out = _variant_launch("slab_window_variant_rowwise", packed, starts, queries,
-                          per_table, "rounded_query")
+                          per_table, mode)
     slab_window_variant_rowwise.launches += 1
     return out
 

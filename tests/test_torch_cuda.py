@@ -349,7 +349,7 @@ def test_blk_kernel_matches_plain(cuda, dtype):
     assert torch.allclose(dk, dr, rtol=1e-5, atol=1e-4 if dtype == torch.int8 else 1e-6)
 
 
-@pytest.mark.parametrize("kernel", ["binned", "int4", "variant", "rounded", "blk"])
+@pytest.mark.parametrize("kernel", ["binned", "int4", "variant", "rounded", "i8", "blk"])
 def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
     """Slabs on the card with starts on the host: the wrapper raises, it
     never falls back to the plain version."""
@@ -367,6 +367,8 @@ def test_probe_kernels_refuse_mixed_devices(cuda, kernel):
         "rounded": lambda: slabvariants.slab_window_variant(packed.to(torch.bfloat16),
                                                             starts, qv, 488,
                                                             "rounded_query"),
+        "i8": lambda: slabvariants.slab_window_variant(
+            packed, starts, slabvariants.quantize_queries(qv), 488, "i8_dot"),
         "blk": lambda: blkslab.blk_window_dots(blkslab.to_blk(packed), starts, qv, 488),
     }[kernel]
     with pytest.raises(ValueError, match="device"):
@@ -510,6 +512,76 @@ def test_rounded_query_kernel_exact_on_integers(cuda, n_pad):
     assert torch.equal(ak, ap) and torch.equal(dk, dp)
 
 
+def _variant_designs(mode):
+    """{design: fn(packed, starts, queries, per_table)} of a variant mode:
+    the tile-major kernel and the row-wise body."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    return {"tiles": lambda *a: sv.slab_window_variant(*a, mode),
+            "rowwise": lambda *a: sv.slab_window_variant_rowwise(*a, mode)}
+
+
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("case", list(SHARING))
+def test_i8_designs_equal_plain(cuda, case, d, design):
+    """P4 i8_dot, tile-major on the int8 tensor cores (and the row-wise
+    body), bit for bit the plain version on every lane: int8 slabs over
+    [-127, 127], per-row int8 queries; d = 64 and 192 take the int8
+    swizzle's half-line branch."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    g = torch.Generator(device=cuda).manual_seed(26)
+    packed, starts, qv = _sharing_inputs(g, case, torch.int8, cuda, d=d)
+    qi = sv.quantize_queries(qv)
+    before = sv.i8_dots.launches
+    dk, ak = _variant_designs("i8_dot")[design](packed, starts, qi, 488)
+    dp, ap = sv.slab_window_variant_plain(packed, starts, qi, 488, "i8_dot")
+    torch.cuda.synchronize()
+    assert sv.i8_dots.launches == before + (design == "tiles")
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("n_pad", [8192, 4097], ids=["aligned", "odd slab length"])
+def test_i8_kernel_exact_at_the_extremes(cuda, n_pad):
+    """Slabs and queries drawn from {-127, 127, -3, 5, 0, 1} (no symmetry
+    that a transposed fragment or swapped k halves would keep) at d = 256,
+    half the queries equal to slab rows: dots up to 256 x 127 x 127, exact
+    in int32 and in f32; an odd slab length takes the writer's scalar path."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    g = torch.Generator(device=cuda).manual_seed(27)
+    vals = torch.tensor([-127, 127, -3, 5, 0, 1], device=cuda, dtype=torch.int8)
+    packed = vals[torch.randint(0, 6, (3, n_pad, 256), generator=g, device=cuda)]
+    qi = vals[torch.randint(0, 6, (257, 256), generator=g, device=cuda)]
+    starts = torch.randint(0, n_pad, (257, 3), generator=g, device=cuda, dtype=torch.int32)
+    qi[::2] = packed[0, starts[::2, 0].long()]       # a query on its own window's rows
+    dk, ak = sv.i8_dots(packed, starts, qi, 488)
+    dp, ap = sv.slab_window_variant_plain(packed, starts, qi, 488, "i8_dot")
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)
+    assert float(dp.max()) > 64 * 127 * 127
+
+
+@pytest.mark.parametrize("design", ["tiles", "rowwise"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", list(SHARING))
+def test_load_floor_designs_equal_plain(cuda, case, d, dtype, design):
+    """P2 load_floor, tile-major (and the row-wise body): output and XOR
+    fold equal to the plain version's, which reads every window byte."""
+    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
+
+    g = torch.Generator(device=cuda).manual_seed(28)
+    packed, starts, qv = _sharing_inputs(g, case, dtype, cuda, d=d)
+    before = sv.load_floor.launches
+    got = _variant_designs("load_floor")[design](packed, starts, qv, 488)
+    want = sv.slab_window_variant_plain(packed, starts, qv, 488, "load_floor")
+    torch.cuda.synchronize()
+    assert sv.load_floor.launches == before + (design == "tiles")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -540,12 +612,17 @@ def test_blk_designs_match_plain(cuda, case, d, dtype, design):
     ("rounded", torch.bfloat16, 320, ValueError),
     ("blk", torch.float32, 128, TypeError),
     ("blk", torch.int8, 80, ValueError),
+    ("i8", torch.bfloat16, 128, TypeError),
+    ("i8", torch.int8, 320, ValueError),
+    ("floor", torch.uint8, 128, TypeError),
+    ("floor", torch.int8, 40, ValueError),
 ])
 def test_tile_wrappers_raise_outside_their_domain(cuda, kernel, dtype, d, error):
     """On CUDA tensors the tensor-core wrappers take int8 / bf16 (P3, P5),
-    bf16 (P2) or uint8 (P6) slabs with d % 64 == 0 and d <= 256, and raise
-    on anything else before a launch; the plain versions take these inputs
-    (P2's only bf16 slabs)."""
+    bf16 (P2), int8 (P4) or uint8 (P6) slabs with d % 64 == 0 and
+    d <= 256, load_floor d % 16 == 0 rows of <= 2048 B, and raise on
+    anything else before a launch; the plain versions take these inputs
+    (P2's rounded_query only bf16 slabs, P4 only int8)."""
     from crypto_rec_tpu_torch.ops.kernels import binned, blkslab, int4slab, slabvariants
 
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -553,10 +630,12 @@ def test_tile_wrappers_raise_outside_their_domain(cuda, kernel, dtype, d, error)
     starts = torch.randint(0, 1024, (6, 2), generator=g, device=cuda, dtype=torch.int32)
     qv = torch.randn(6, d, generator=g, device=cuda)
     fn = {"binned": binned.binned_dots, "int4": int4slab.slab_window_dots_int4,
-          "rounded": slabvariants.rounded_query_dots,
-          "blk": blkslab.blk_window_dots}[kernel]
+          "rounded": slabvariants.rounded_query_dots, "i8": slabvariants.i8_dots,
+          "floor": slabvariants.load_floor, "blk": blkslab.blk_window_dots}[kernel]
     if kernel == "blk":
         packed = blkslab.to_blk(packed)
+    if kernel == "i8":
+        qv = slabvariants.quantize_queries(qv)
     before = fn.launches
     with pytest.raises(error):
         fn(packed, starts, qv, 200)

@@ -1,5 +1,5 @@
-"""The tensor-core probe bodies' schedules and combine (P2 rounded_query,
-P3, P5, P6), on the CPU.
+"""The tile-major probe bodies' schedules and combine (P2 rounded_query and
+load_floor, P3, P4, P5, P6), on the CPU.
 
 The CUDA kernel (csrc/probetile.cu) runs only on the card, so its pieces
 are stated and checked here in plain torch:
@@ -37,10 +37,23 @@ are stated and checked here in plain torch:
   and 256 with windows meeting the slab's first and last tiles, and
   against the JAX probe in interpret mode within test_torch_probes.py's
   tolerances (atol 1e-4 int8, 1e-6 bf16);
-- the domain the tensor-core wrappers check before they launch: int8 and
-  bf16 slabs (P3, P5), bf16 (P2) or uint8 (P6) with d % 64 == 0 and
-  d <= 256; other slab types and widths raise, though the plain versions
-  take them (P2's plain version, too, takes only bf16 slabs).
+- P4 i8_dot: tiles of 128 int8 rows as stored, chunks of 16 pairs' int8
+  queries, each dot one int32 sum (the s8 MMA's); P2 load_floor: tiles of
+  128 rows, each covered row folded once, the prefix XOR over the tile
+  giving each pair its share of the query's fold, the query's first
+  element on its lanes.  Both equal the plain versions exactly over CASES
+  at d = 64, 128 and 256 (load_floor on int8, bf16 and f32 slabs), with
+  every lane written once: XOR hides a lane folded twice and drops one no
+  tile folds, so the cases hold heavy sharing, windows ending in a cut
+  last tile and one query's windows of two tables meeting in one tile;
+  and both equal the JAX probes in interpret mode exactly (P4 "mxu_i8"
+  dots, P2 "zeros" output);
+- the domain the tile-major wrappers check before they launch: int8 and
+  bf16 slabs (P3, P5), bf16 (P2), int8 (P4) or uint8 (P6) with d % 64 ==
+  0 and d <= 256, load_floor d % 16 == 0 rows of <= 2048 B; other slab
+  types and widths raise, though the plain versions take them (P2's
+  rounded_query plain version, too, takes only bf16 slabs, P4's only
+  int8).
 """
 
 import jax.numpy as jnp
@@ -49,6 +62,7 @@ import pytest
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import binned, blkslab, int4slab, slabvariants
+from crypto_rec_tpu_torch.ops.kernels.probetile import BYTE_TILE_ROWS
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _check_tile_slab, _geometry, probe_tile_rows, slab_window_dots_plain, split_bf16x3,
 )
@@ -65,6 +79,7 @@ CASES = {
     "sparse": (2, 8192, 128, 7, "uniform"),
     "last tile cut, d256": (3, 2048 - 96, 256, 40, "end"),
     "d256": (2, 2048, 256, 30, "uniform"),
+    "tables meet in a tile": (3, 2048 - 96, 128, 40, "straddle"),
 }
 
 
@@ -73,11 +88,19 @@ def _starts(rng, how, q, T, n_pad):
         return rng.integers(0, 3, (q, T)) * 500
     if how == "end":           # windows clamped to end inside the slab
         return rng.integers(n_pad - 300, n_pad, (q, T))
+    if how == "straddle":      # a table's end and the next one's start: with
+        #                        n_pad no multiple of a tile, one query's
+        #                        windows of two tables meet in one tile
+        return np.where(np.arange(T) % 2 == 0, rng.integers(n_pad - 100, n_pad, (q, T)),
+                        rng.integers(0, 100, (q, T)))
     return rng.integers(0, n_pad, (q, T))
 
 
-def _case(name, seed, integer=False):
-    T, n_pad, d, q, how = CASES[name]
+def _case(name, seed, integer=False, d=None):
+    """CASES[name] as (int8 slabs, starts, f32 queries); d overrides the
+    case's width."""
+    T, n_pad, d0, q, how = CASES[name]
+    d = d0 if d is None else d
     rng = np.random.default_rng(seed)
     if integer:                # exact dots, frequent ties
         p8 = rng.integers(-2, 3, (T, n_pad, d)).astype(np.int8)
@@ -472,6 +495,171 @@ def test_blk_schedule_matches_the_jax_probe(dtype):
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **JAX_TOL[dtype])
 
 
+# ---- P4 i8_dot and P2 load_floor: int8 rows as stored; no product ----
+
+def emulate_i8(packed, starts, queries, per_table):
+    """The tile-major P4 in plain torch -> (dots [q, T, win] f32, aligned,
+    writes [q, T, win]).  Tiles of BYTE_TILE_ROWS int8 rows as stored, the
+    chunks of 16 pairs' int8 queries, each dot one int32 sum over all of d
+    (the s8 MMA's, exact in any order), written as f32."""
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    d = packed.shape[2]
+    flat = packed.reshape(-1, d).to(torch.int32)
+    n_rows, rt = flat.shape[0], BYTE_TILE_ROWS
+    qi = queries.to(torch.int32)
+    dots = torch.full((q * T, win), float("nan"))
+    writes = torch.zeros(q * T, win, dtype=torch.int64)
+    for t0, p, r0 in chunks(row0, win, n_rows, rt):
+        rows = torch.arange(t0, min(t0 + rt, n_rows))
+        block = (qi[p // T][:, None, :] * flat[rows][None]).sum(-1, dtype=torch.int32)
+        j = rows[None, :] - r0.long()[:, None]
+        pi, ri = torch.nonzero((j >= 0) & (j < win), as_tuple=True)
+        dots[p[pi], j[pi, ri]] = block[pi, ri].float()
+        writes[p[pi], j[pi, ri]] += 1
+    return dots.reshape(q, T, win), aligned, writes.reshape(q, T, win)
+
+
+def emulate_load_floor(packed, starts, per_table):
+    """The tile-major P2 load_floor in plain torch and numpy -> (out
+    [q, T, win] f32, aligned, fold [q] int32, writes [q, T, win]).  Each
+    tile of BYTE_TILE_ROWS rows that some window meets folds each row it
+    covers (its first pair's row0 to its last pair's window end) to one
+    word, takes the prefix XOR over the tile's rows, and gives each of its
+    pairs (`tile_ranges`) prefix[j_hi] ^ prefix[j_lo] into the query's fold
+    and the query's first element on the lanes [j_lo, j_hi)."""
+    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
+    q, T = starts.shape
+    d = packed.shape[2]
+    flat = packed.reshape(-1, d)
+    n_rows, rt = flat.shape[0], BYTE_TILE_ROWS
+    row_word = np.bitwise_xor.reduce(flat.contiguous().view(torch.int32).numpy(), axis=1)
+    first = flat[row0[:, 0].long(), 0].float()
+    out = torch.full((q * T, win), float("nan"))
+    writes = torch.zeros(q * T, win, dtype=torch.int64)
+    fold = np.zeros(q, np.int32)
+    order, sr, lo, hi = tile_ranges(row0, win, n_rows, rt)
+    for j, (s, e) in enumerate(zip(lo.tolist(), hi.tolist())):
+        if e <= s:
+            continue
+        t0 = j * rt
+        a, b = max(t0, int(sr[s])), min(t0 + rt, n_rows, int(sr[e - 1]) + win)
+        words = np.zeros(rt, np.int32)
+        words[a - t0:b - t0] = row_word[a:b]
+        prefix = np.concatenate([[0], np.bitwise_xor.accumulate(words)]).astype(np.int32)
+        for pid, r0 in zip(order[s:e].tolist(), sr[s:e].tolist()):
+            j_lo, j_hi = max(0, t0 - r0), min(win, t0 + rt - r0)
+            out[pid, j_lo:j_hi] = first[pid // T]
+            writes[pid, j_lo:j_hi] += 1
+            fold[pid // T] ^= prefix[r0 - t0 + j_hi] ^ prefix[r0 - t0 + j_lo]
+    return (out.reshape(q, T, win), aligned, torch.from_numpy(fold),
+            writes.reshape(q, T, win))
+
+
+def _int8_queries(seed, q, d):
+    """int8 queries over the whole of [-127, 127], no symmetry, both ends
+    reached."""
+    qi = np.random.default_rng(seed).integers(-127, 128, (q, d)).astype(np.int8)
+    qi[0, 0], qi[-1, -1] = 127, -127
+    return torch.from_numpy(qi)
+
+
+def _floor_slab(p8, dtype, seed):
+    """int8 slabs as drawn; bf16 / f32 ones of the same shape from normals
+    (every bit of their words in play)."""
+    if dtype == torch.int8:
+        return p8
+    x = np.random.default_rng(seed).normal(size=p8.shape).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+D_SWEEP = [64, 128, 256]
+
+
+@pytest.mark.parametrize("d", D_SWEEP)
+@pytest.mark.parametrize("case", list(CASES))
+def test_i8_tile_schedule_equals_plain(case, d):
+    """Bit for bit on every lane, each written once; the int8 slabs and
+    queries reach -127 and 127."""
+    seed = 80 + list(CASES).index(case)
+    packed, starts, _ = _case(case, seed, d=d)
+    qi = _int8_queries(seed, starts.shape[0], d)
+    got, a_got, writes = emulate_i8(packed, starts, qi, PT)
+    want, a_want = slabvariants.slab_window_variant_plain(packed, starts, qi, PT, "i8_dot")
+    assert torch.equal(a_got, a_want)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert torch.equal(got, want)
+    assert int(packed.min()) == -127 and int(packed.max()) == 127
+    assert int(qi.min()) == -127 and int(qi.max()) == 127
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32],
+                         ids=["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", D_SWEEP)
+@pytest.mark.parametrize("case", list(CASES))
+def test_load_floor_tile_schedule_equals_plain(case, d, dtype):
+    """Output and fold exact, every lane written once: XOR would hide a
+    lane folded twice, and drop one that no tile folds."""
+    seed = 90 + list(CASES).index(case)
+    p8, starts, qv = _case(case, seed, d=d)
+    packed = _floor_slab(p8, dtype, seed)
+    got, a_got, fold, writes = emulate_load_floor(packed, starts, PT)
+    want, a_want, want_fold = slabvariants.slab_window_variant_plain(
+        packed, starts, qv, PT, "load_floor")
+    assert torch.equal(a_got, a_want)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert torch.equal(got, want)
+    assert torch.equal(fold, want_fold)
+
+
+def test_load_floor_cases_meet_what_the_fold_can_hide():
+    """The cases above hold what XOR would hide: a tile walked by many
+    pairs (heavy sharing), windows ending at the slab's end in a cut last
+    tile, and one query's windows of two tables meeting in one tile."""
+    def meetings(case):
+        T, n_pad, _, _, _ = CASES[case]
+        _, starts, _ = _case(case, 90 + list(CASES).index(case))
+        win, _, row0, _, _ = _geometry(torch.zeros(T, n_pad, 1), starts, None, PT, False)
+        return win, row0, T * n_pad
+    win, row0, n_rows = meetings("heavy sharing")
+    _, _, lo, hi = tile_ranges(row0, win, n_rows, BYTE_TILE_ROWS)
+    assert int((hi - lo).max()) > 2 * M
+    win, row0, n_rows = meetings("last tile cut, d256")
+    assert n_rows % BYTE_TILE_ROWS and int((row0 + win).max()) == n_rows
+    win, row0, n_rows = meetings("tables meet in a tile")
+    tiles = lambda r: torch.div(r, BYTE_TILE_ROWS, rounding_mode="floor")  # noqa: E731
+    last_of_0, first_of_1 = tiles(row0[:, 0] + win - 1), tiles(row0[:, 1])
+    assert bool((last_of_0 == first_of_1).any())
+
+
+def test_i8_schedule_equals_the_jax_probe():
+    """The emulation against nomask_dots' "mxu_i8" (interpret mode) on the
+    probe's int8 slabs and int8 queries: exact."""
+    p4 = probe_functions()["p4"]
+    packed, starts, _ = _case("heavy sharing", 95)
+    qi = _int8_queries(95, starts.shape[0], packed.shape[2])
+    want_d, want_a = p4.nomask_dots(jnp.asarray(packed.numpy()), jnp.asarray(starts.numpy()),
+                                    jnp.asarray(qi.numpy()), PT, score="mxu_i8")
+    got_d, got_a, _ = emulate_i8(packed, starts, qi, PT)
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_load_floor_schedule_equals_the_jax_probe(dtype):
+    """The emulation's output against run_variant's "zeros" (interpret
+    mode): the first element of table 0's window on every lane, exact."""
+    p2 = probe_functions()["p2"]
+    p8, starts, qv = _case("tables meet in a tile", 96)
+    packed = _floor_slab(p8, dtype, 96)
+    jp = (jnp.asarray(packed.numpy()) if dtype == torch.int8
+          else jnp.asarray(packed.float().numpy(), jnp.bfloat16))
+    want = p2.run_variant(jp, jnp.asarray(starts.numpy()), jnp.asarray(starts.numpy()),
+                          jnp.asarray(qv.numpy()), PT, 16, 4, "zeros")[:qv.shape[0]]
+    got, _, _, _ = emulate_load_floor(packed, starts, PT)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---- the tensor-core wrappers' domain ----
 
 # name -> (kernel, slab dtype, d, the error its CUDA checks raise, or None)
@@ -501,16 +689,31 @@ DOMAIN = {
     "P5 bf16 d64": ("blk", torch.bfloat16, 64, None),
     "P5 int8 d256": ("blk", torch.int8, 256, None),
     "P5 bf16 d256": ("blk", torch.bfloat16, 256, None),
+    "P4 bf16": ("i8", torch.bfloat16, 128, TypeError),
+    "P4 int8 d80": ("i8", torch.int8, 80, ValueError),
+    "P4 int8 d320": ("i8", torch.int8, 320, ValueError),
+    "P4 int8 d64": ("i8", torch.int8, 64, None),
+    "P4 int8 d192": ("i8", torch.int8, 192, None),
+    "P4 int8 d256": ("i8", torch.int8, 256, None),
+    "P2 floor uint8": ("floor", torch.uint8, 128, TypeError),
+    "P2 floor int8 d40": ("floor", torch.int8, 40, ValueError),
+    "P2 floor f32 d1024": ("floor", torch.float32, 1024, ValueError),
+    "P2 floor int8 d48": ("floor", torch.int8, 48, None),
+    "P2 floor bf16 d1024": ("floor", torch.bfloat16, 1024, None),
+    "P2 floor f32 d64": ("floor", torch.float32, 64, None),
 }
 
 
 @pytest.mark.parametrize("case", list(DOMAIN))
 def test_tile_wrappers_check_their_domain(case):
     """The checks `binned_dots`, `slab_window_dots_int4`,
-    `rounded_query_dots` and `blk_window_dots` run on CUDA tensors before
-    their launch, here on CPU tensors: the plain versions take every case
-    (P2's every bf16 case), the tensor-core kernels only int8 / bf16 (P3,
-    P5), bf16 (P2) or uint8 (P6) slabs with d % 64 == 0, d <= 256."""
+    `rounded_query_dots`, `i8_dots`, `blk_window_dots` and `load_floor`
+    run on CUDA tensors before their launch, here on CPU tensors: the plain
+    versions take every case (P2's rounded_query every bf16 case, P4 every
+    int8 one), the tensor-core kernels only int8 / bf16 (P3, P5), bf16 (P2),
+    int8 (P4, with int8 queries) or uint8 (P6) slabs with d % 64 == 0,
+    d <= 256; load_floor, as the row-wise body, int8, bf16 and f32 rows
+    with d % 16 == 0 of at most 2048 bytes."""
     kernel, dtype, d, error = DOMAIN[case]
     g = torch.Generator().manual_seed(5)
     q, T, n_pad = 6, 2, 1024
@@ -524,6 +727,14 @@ def test_tile_wrappers_check_their_domain(case):
         if dtype == torch.bfloat16:
             slabvariants.slab_window_variant_plain(packed, starts, qv, PT, "rounded_query")
         check = lambda: slabvariants._cuda_rounded(packed, starts, qv, PT)  # noqa: E731
+    elif kernel == "i8":
+        qi = slabvariants.quantize_queries(qv)
+        if dtype == torch.int8:
+            slabvariants.slab_window_variant_plain(packed, starts, qi, PT, "i8_dot")
+        check = lambda: slabvariants._cuda_i8(packed, starts, qi, PT)  # noqa: E731
+    elif kernel == "floor":
+        slabvariants.slab_window_variant_plain(packed, starts, qv, PT, "load_floor")
+        check = lambda: slabvariants._cuda_floor(packed, starts, qv, PT)  # noqa: E731
     elif kernel == "blk":
         blk = blkslab.to_blk(packed)
         blkslab.blk_window_dots_plain(blk, starts, qv, PT)

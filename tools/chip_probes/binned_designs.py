@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""The tensor-core probe bodies (P2 rounded_query, P3, P5, P6) against the
-row-wise ones, at the probes' operating point.
+"""The tile-major probe bodies (P2 rounded_query and load_floor, P3, P4,
+P5, P6) against the row-wise ones, at the probes' operating point.
 
 On the probes' index (2M x 128 planted corpus, cosine k = 13, L = 8, window
 488 -> win 640; benchmarks/experiments/_common): P3 (binned top-1) at
 q = 8,192 on int8 and bf16 slabs, nbins 128 and 256: the tile-major kernel
 (`binned_dots`, csrc/probetile.cu) against the previous row-wise body
 (`binned_dots_rowwise`); P6 (int4 slabs) at q = 32,768, P2's rounded_query
-(bf16) and P5 (blocked int8 and bf16 slabs) at q = 8,192: the tile-major
-kernel against the row-wise body.
+(bf16), P4's i8_dot (int8), P2's load_floor (int8 and bf16) and P5
+(blocked int8 and bf16 slabs) at q = 8,192: the tile-major kernel against
+the row-wise body.
 Each is first held against its plain version on 2,048 queries (values
 within rtol 1e-5 / atol 1e-4, P3's winning lanes equal wherever a bin's
-best two dots differ by more), then timed in alternating rounds (CUDA
+best two dots differ by more; i8_dot's dots and load_floor's output and
+fold exactly), then timed in alternating rounds (CUDA
 events, medians) beside the host-side schedule of the tile-major kernels
 alone (the sort of the pairs by first row) and, for the record, K1's torch
 work list at the same windows (`tile_plan`, ~25 small operations), with
 the bound of the call (ops/kernels/bounds.py).  Each timed call ends in a
 synchronize, so its time includes the host's dispatch of the wrapper's
-small operations; P2's and P5's rows also time ten tile-major calls back
-to back in one pair of events ("tiles_back_to_back", per call), where the
-host runs ahead and the device time shows.
+small operations; the P2, P4 and P5 rows also time ten tile-major calls
+back to back in one pair of events ("tiles_back_to_back", per call), where
+the host runs ahead and the device time shows.
 
     python3 tools/chip_probes/binned_designs.py [--rounds 15]
 
@@ -127,27 +129,33 @@ def p6_row(p, rounds):
 
 
 def dots_row(kernel, geometry, designs, plain, row0, win, n_rows, row_bytes, d, qv,
-             rounds):
-    """A dots-writing kernel's designs (name -> fn of no argument) held
-    against `plain` on the first CHECK_Q queries (fn / plain of a query
-    count), then timed with the sort of its pairs."""
-    dp, ap = plain(CHECK_Q)
+             rounds, exact=False, bound=None):
+    """A dots-writing kernel's designs (name -> fn of a query count, None
+    for all) held against `plain` on the first CHECK_Q queries: the dots
+    within TOL (exact: equal), the aligned starts and any further output
+    (load_floor's fold) equal; then timed with the sort of its pairs.
+    bound: a function of the tile-major call's outputs giving its bound in
+    place of `bounds.window_call` on (row0, win)."""
+    want = plain(CHECK_Q)
     errs = {}
     for name, fn in designs.items():
-        dk, ak = fn(CHECK_Q)
-        if not torch.equal(ak, ap) or not torch.allclose(dk, dp, **TOL):
+        got = fn(CHECK_Q)
+        close = (torch.equal(got[0], want[0]) if exact
+                 else torch.allclose(got[0], want[0], **TOL))
+        if not close or not all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
             raise AssertionError(f"{kernel} {name}: kernel and plain differ")
-        errs[name] = float((dk - dp).abs().max())
-        del dk
-    del dp
+        errs[name] = float((got[0] - want[0]).abs().max())
+        del got
+    del want
     t = C.timed_alternating({**{k: (lambda f=f: f(None)) for k, f in designs.items()},
                              "sort": lambda: torch.sort(row0.reshape(-1)),
                              "tiles_x10": lambda: [designs["tiles"](None) for _ in range(10)]},
                             qv.device, rounds)
     ms = {k: statistics.median(v) for k, v in t.items()}
     ms["tiles_back_to_back"] = ms.pop("tiles_x10") / 10
-    b = bounds.window_call(row0, win, n_rows, row_bytes, d, inputs=(qv,),
-                           outputs=designs["tiles"](None))
+    outs = designs["tiles"](None)
+    b = (bound(outs) if bound is not None else
+         bounds.window_call(row0, win, n_rows, row_bytes, d, inputs=(qv,), outputs=outs))
     print(f"{kernel} {geometry}: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f" ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
@@ -168,6 +176,27 @@ def p2_row(p, rounds):
         lambda q: slabvariants.slab_window_variant_plain(*args(q), "rounded_query"),
         row0, window_len(p.per_table), p.packed.shape[0] * p.packed.shape[1],
         p.packed.shape[2] * 2, p.packed.shape[2], p.qv, rounds)
+
+
+def variant_row(p, mode, rounds):
+    """P4 i8_dot (int8 slabs, the queries quantized once, outside the
+    timed calls) or P2 load_floor: the tile-major kernel against the
+    row-wise body, exact against the plain version, with the mode's bound
+    (`bounds.variant_call`: i8_dot on the int8 tensor cores, load_floor no
+    operations)."""
+    qv = slabvariants.quantize_queries(p.qv) if mode == "i8_dot" else p.qv
+
+    def args(q):
+        return (p.packed, p.s0[:q], qv[:q], p.per_table, mode)
+    _, _, row0, _, _ = _geometry(p.packed, p.s0, None, p.per_table, False)
+    return dots_row(
+        f"P{4 if mode == 'i8_dot' else 2} {mode}", f"{str(p.packed.dtype)[6:]}, q = {Q3}",
+        {"tiles": lambda q: slabvariants.slab_window_variant(*args(q)),
+         "rowwise": lambda q: slabvariants.slab_window_variant_rowwise(*args(q))},
+        lambda q: slabvariants.slab_window_variant_plain(*args(q)),
+        row0, window_len(p.per_table), p.packed.shape[0] * p.packed.shape[1],
+        p.packed.shape[2] * p.packed.element_size(), p.packed.shape[2], qv, rounds,
+        exact=True, bound=lambda outs: bounds.variant_call(*args(None)[:4], mode, outs))
 
 
 def p5_row(p, rounds):
@@ -205,8 +234,10 @@ def main(argv=None) -> int:
         rows += p3_rows(p, args.rounds)
         if dt == torch.int8:
             rows.append(p6_row(C.probe_index(pidx, queries), args.rounds))
+            rows.append(variant_row(p, "i8_dot", args.rounds))
         else:
             rows.append(p2_row(p, args.rounds))
+        rows.append(variant_row(p, "load_floor", args.rounds))
         rows.append(p5_row(p, args.rounds))
         del pidx
         torch.cuda.empty_cache()

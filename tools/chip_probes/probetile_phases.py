@@ -6,8 +6,8 @@ copies of probetile.cu with one phase cut out and times them against the
 whole kernel in alternating rounds (CUDA events, medians), at the probes'
 operating point (2M x 128 planted corpus, cosine k = 13, L = 8, window 488;
 P3 binned top-1 on int8 slabs, nbins 128, q = 8,192; P6 int4, q = 32,768;
-P2 rounded_query on bf16 slabs and P5 on blocked int8 and bf16 slabs,
-q = 8,192):
+P2 rounded_query on bf16 slabs, P4 i8_dot on int8 slabs and P5 on blocked
+int8 and bf16 slabs, q = 8,192):
 
 - full:       the kernel as built for the port;
 - no_epi:     no epilogue (P3's key combine, the others' dots writes);
@@ -42,15 +42,18 @@ from crypto_rec_tpu_torch.experiments import _common as C  # noqa: E402
 from crypto_rec_tpu_torch.models.lsh.index import pack_index  # noqa: E402
 from crypto_rec_tpu_torch.ops.kernels import build, int4slab  # noqa: E402
 from crypto_rec_tpu_torch.ops.kernels.blkslab import B, _geometry_blk, to_blk  # noqa: E402
-from crypto_rec_tpu_torch.ops.kernels.probetile import KINDS, tile_schedule  # noqa: E402
+from crypto_rec_tpu_torch.ops.kernels.probetile import (  # noqa: E402
+    BYTE_TILE_ROWS, KINDS, tile_queries, tile_schedule,
+)
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (  # noqa: E402
     _DTYPE_CODE, _geometry, probe_tile_rows,
 )
+from crypto_rec_tpu_torch.ops.kernels.slabvariants import quantize_queries  # noqa: E402
 
 EPI = "    for (int m = warp; m < cnt; m += kThreads / 32) {"
-MMA = "    for (int kc = 0; kc < d / 16; ++kc) {"
+MMA = "    for (int kc = 0; kc < d / (K::i8 ? 32 : 16); ++kc) {"
 QRY = "    if (slot < cnt) {"
-CUT = {EPI: EPI.replace("cnt;", "cnt * 0;"), MMA: MMA.replace("d / 16;", "0;"),
+CUT = {EPI: EPI.replace("cnt;", "cnt * 0;"), MMA: MMA.replace("d / (K::i8 ? 32 : 16);", "0;"),
        QRY: QRY.replace("(slot < cnt)", "(slot < cnt * 0)")}
 VARIANTS = {"full": (), "no_epi": (EPI,), "no_mma": (MMA,), "loads_only": (EPI, QRY, MMA)}
 NBINS = 128
@@ -139,6 +142,16 @@ def p2_call(lib, p):
                      probe_tile_rows(d))
 
 
+def p4_call(lib, p):
+    """P4 i8_dot on int8 slabs, the queries quantized once outside the
+    timed calls, as the probe does."""
+    win, _, row0, _, _ = _geometry(p.packed, p.s0, None, p.per_table, False)
+    d = p.packed.shape[2]
+    return dots_call(lib, p.packed, tile_queries(quantize_queries(p.qv), torch.int8), row0,
+                     win, d, p.packed.shape[0] * p.packed.shape[1], "i8_dot",
+                     BYTE_TILE_ROWS)
+
+
 def p5_call(lib, blk, p):
     win, _, blk0 = _geometry_blk(blk, p.s0, p.per_table)
     L, npb, d, _ = blk.shape
@@ -166,6 +179,7 @@ def main(argv=None) -> int:
     for label, make in ((f"P3 int8 nbins {NBINS}, q = 8192", lambda lib: p3_call(lib, p3)),
                         ("P6 int4, q = 32768", lambda lib: p6_call(lib, p4, p6)),
                         ("P2 rounded_query bf16, q = 8192", lambda lib: p2_call(lib, p16)),
+                        ("P4 i8_dot int8, q = 8192", lambda lib: p4_call(lib, p3)),
                         ("P5 int8, q = 8192", lambda lib: p5_call(lib, b8, p3)),
                         ("P5 bf16, q = 8192", lambda lib: p5_call(lib, b16, p16))):
         t = C.timed_alternating({name: make(lib) for name, lib in libs.items()}, dev,
