@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It drives the port's serving paths at `bench.py`'s operating points on one
 2M x 128 planted corpus on the card, the recommender program and its
 10-fold CV, the rest of the single-chip package and the sharded
-engines, in twenty-two phases; each phase raises on failure:
+engines, in twenty-three phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -20,7 +20,10 @@ engines, in twenty-two phases; each phase raises on failure:
   5. the fused LSH -> CF slice end to end at q = 8,192 and 32,768 (cosine
      k = 13, L = 8, int8 slabs, top-20 neighbours, top-5 coins): index
      build (K2), pack, retrieval (K1), CF scoring; neighbour recall@10
-     against the planted truth must reach 0.99;
+     against the planted truth must reach 0.99; the exact oracle streamed
+     from the corpus copied to the host (exact_nearest_streamed, 1,024
+     queries, 2^18-row slices) against the resident one: ids equal but
+     within 1e-5 distance ties;
   6. lsh_phase(engine="fused") on the same users;
   7. serving: serve_cli answers three requests from a saved index;
   8. K1 against its plain version on every window at the new geometries
@@ -77,14 +80,19 @@ engines, in twenty-two phases; each phase raises on failure:
      at phase 9's point (>= 0.98) through packed_retrieve_core and the
      rerank, a single cosine cube with 20 probes (the blocked branch,
      >= 0.96), and pack_index_host's int8 slabs equal to pack_index's byte
-     for byte;
+     for byte; on the per-row int8 index, K1 with packed_scale against its
+     plain version on every window (both masks), timed with and without
+     the scale, and packed_retrieve_pallas with the scale (production and
+     strict, counted: K1 must run) at recall@10 >= 0.99;
  19. the streamed index: bench_100m.py's planted recipe cut from 100M to
      16M x 128 rows (4 chunks, k = 15, L = 4, window 256, q = 16,384,
      pinned host chunks): K1 against its plain version on every window of
      chunk 0; five passes alternating with five copies of every chunk's
      bytes alone (the copy rate the pass is held against); then a counted
      pass: K1 and K2 must run, recall@10 >= 0.95, device peak under three
-     chunks;
+     chunks; the chunks' 16M f32 rows kept on the host (8.2 GB) and
+     exact_nearest_streamed over 1,024 queries in 2^20-row slices: its
+     agreement with the planted truth (>= 0.99) and seconds;
  20. IVF at bench_ivf.py's point (1,953 clusters, k-means on 262,144 rows
      x 8 iterations, bf16 blocks), nprobe 2/4/8/16 at q = 8,192 with q/s
      and recall@10; recall >= 0.99 at nprobe 16;
@@ -102,7 +110,11 @@ engines, in twenty-two phases; each phase raises on failure:
      plain version on shard 0's windows, sharded_recommend_csr (budget
      256), routed_retrieve_topk (csr interior) and the dense
      sharded_recommend at q = 512, each recall@10 >= 0.99, with their
-     stats.
+     stats;
+ 23. the top-k sites repaired to tie order (exact_nearest, its streamed
+     merge, directed_probe_vertices, rerank_exact, the epilogue's dedup
+     top-k), each on inputs full of exact ties on the card and on the CPU:
+     0 differing sets and orders.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -253,27 +265,31 @@ def k2_line(phase, e):
         f"{e['peak']}): {100 * e['share_of_bound']:.1f}% of it")
 
 
-def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab):
+def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab, packed_scale=None):
     """The tile-major K1 against its plain version on every given window,
     both mask modes: aligned starts equal, masked lanes equal, dots within
-    rtol 1e-5 / atol 1e-4.  -> max |err| over the finite lanes."""
+    rtol 1e-5 / atol 1e-4 (with a per-row packed_scale, atol 1e-4 times
+    the largest scale: the unscaled dots' tolerance).  -> max |err| over
+    the finite lanes."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         slab_window_dots, slab_window_dots_plain,
     )
 
     err = 0.0
+    atol = 1e-4 if packed_scale is None else 1e-4 * float(packed_scale.max())
     for mask in (True, False):
         a = (packed, s0, sizes, qk, per_table)
-        dk, ak = slab_window_dots(*a, mask=mask, shared_slab=shared_slab)
-        dp, ap = slab_window_dots_plain(*a, mask=mask, shared_slab=shared_slab)
+        kw = dict(mask=mask, shared_slab=shared_slab, packed_scale=packed_scale)
+        dk, ak = slab_window_dots(*a, **kw)
+        dp, ap = slab_window_dots_plain(*a, **kw)
         torch.cuda.synchronize()
         if not torch.equal(ak, ap):
             raise AssertionError(f"K1 {label}: aligned starts differ")
         fin = torch.isfinite(dp)
         if not torch.equal(fin, torch.isfinite(dk)):
             raise AssertionError(f"K1 {label}: masked lanes differ")
-        if not torch.allclose(dk[fin], dp[fin], rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"K1 {label}: dots differ beyond rtol 1e-5, atol 1e-4")
+        if not torch.allclose(dk[fin], dp[fin], rtol=1e-5, atol=atol):
+            raise AssertionError(f"K1 {label}: dots differ beyond rtol 1e-5, atol {atol:.3g}")
         err = max(err, float((dk[fin] - dp[fin]).abs().max()))
         del dk, dp, fin
     return err
@@ -310,6 +326,30 @@ def k1_line(phase, e, err=None):
         f"tile-major {e['ms']:.3f} ms, row-wise {e['prev_ms']:.3f} ms, plain {plain}; "
         f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}; f32 FFMA floor "
         f"{e['ffma_bound_ms']:.3f} ms): {100 * e['share_of_bound']:.1f}% of it")
+
+
+def k1_scale_time(label, packed, scale, s0, sizes, qk, per_table, rounds=ROUNDS):
+    """K1 with the per-row scale, the same K1 call without it and the
+    plain version with it, mask off, in alternating rounds on the same
+    windows, with the bound of the call with the scale.  The row-wise body
+    takes no scale: prev_ms is None; no one PyTorch call computes K1:
+    library_ms is None."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        slab_window_dots, slab_window_dots_plain, window_len,
+    )
+
+    a = (packed, s0, sizes, qk, per_table)
+    t = rounds_ms({"ms": lambda: slab_window_dots(*a, mask=False, packed_scale=scale),
+                   "unscaled_ms": lambda: slab_window_dots(*a, mask=False),
+                   "plain_ms": lambda: slab_window_dots_plain(*a, mask=False,
+                                                              packed_scale=scale)},
+                  rounds)
+    entry = dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
+                 per_table=per_table, win=window_len(per_table), rows=int(s0.shape[0]),
+                 windows_per_row=int(s0.shape[1]), prev_ms=None, library_ms=None, **t)
+    return with_bound(entry, bounds.k1_call(packed, s0, sizes, qk, per_table,
+                                            packed_scale=scale))
 
 
 def serve_requests(tmp, idx_path, corpus_path, q_host, true_host, args):
@@ -1442,6 +1482,7 @@ def phase18(corpus, queries, true_idx, index, q_host, true_host):
     pidx = pack_index(index, corpus, dtype=torch.int8, scale_mode="row")
     leg("cosine per-row int8 (packed_retrieve_core + rerank)", pidx,
         lambda: retrieve_topk(pidx, qs, corpus, TOP_K, per_table=PER_TABLE), NK["floor"])
+    res["k1_per_row"] = per_row_k1(pidx, qs, true_idx[:NK["q"]])
     del pidx
     eidx = pack_index(build_index(gen(SEED + 21), corpus, "euclidean", E_K, E_L,
                                   lsh_bucket_div=E_DIV, euclidean_h_w=E_W),
@@ -1481,6 +1522,113 @@ def phase18(corpus, queries, true_idx, index, q_host, true_host):
     return res
 
 
+def per_row_k1(pidx, qs, truth):
+    """Phase 18's per-row int8 index through K1 with packed_scale: against
+    its plain version on every window (both mask modes), timed with and
+    without the scale; then packed_retrieve_pallas with the scale, counted
+    (K1 must run), in production and strict mode, each at recall@10 >= the
+    per-row floor."""
+    from crypto_rec_tpu_torch.models.lsh.index import query_hashes
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        _window_offsets, packed_retrieve_pallas,
+    )
+    from crypto_rec_tpu_torch.ops.oracle import recall_at_k
+
+    q = qs.shape[0]
+    qv = unit(qs)
+    qb, _ = query_hashes(pidx, qv)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, PER_TABLE)
+    scale = pidx.packed_scale
+    label = f"per-row int8 (packed_scale), q = {q}"
+    err = k1_check(label, pidx.packed, s0, sizes, qv, PER_TABLE, False, packed_scale=scale)
+    e = k1_scale_time(label, pidx.packed, scale, s0, sizes, qv, PER_TABLE)
+    e["max_abs_err"] = err
+    log(f"phase 18 K1 {label}: slab {e['slab']} int8 + scale {list(scale.shape)}, win "
+        f"{e['win']}: max |err| {err:.3g} (mask on/off, every window, atol 1e-4 x max "
+        f"scale {float(scale.max()):.3g}); {ROUNDS} alternating rounds: with the scale "
+        f"{e['ms']:.3f} ms, without {e['unscaled_ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+        f"ms; bound {e['bound_ms']:.3f} ms ({e['bound_by']}, the scale's 4 B a covered "
+        f"row counted): {100 * e['share_of_bound']:.1f}% of it")
+    del s0, sizes
+    out = {}
+    for strict in (False, True):
+        def run():
+            return packed_retrieve_pallas(pidx.packed, pidx.packed_rows, pidx.bucket_starts,
+                                          pidx.n_rows, qs, qb, TOP_K, PER_TABLE,
+                                          strict=strict, packed_scale=scale)
+
+        zero_counts()
+        scores, ids = run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_topk(scores, ids, q, pidx.n_rows, "per-row packed_retrieve_pallas")
+        recall = recall_at_k(ids, truth)
+        t = wall_ms(run, reps=3)
+        mode = "strict" if strict else "production"
+        log(f"phase 18 packed_retrieve_pallas per-row int8 ({mode}, q={q}): {t:.3f} ms "
+            f"({q / t * 1e3:,.0f} q/s), recall@{TOP_K} {recall:.4f} (floor {NK['floor']}), "
+            f"top score {float(scores[:, 0].max()):.4f}; launches {launches}")
+        if not launches["slab_window_dots"]:
+            raise AssertionError(f"per-row packed_retrieve_pallas: K1 did not run: {launches}")
+        if recall < NK["floor"]:
+            raise AssertionError(f"per-row packed_retrieve_pallas ({mode}): recall "
+                                 f"{recall:.4f} < {NK['floor']}")
+        out[mode] = dict(ms=t, qps=q / t * 1e3, recall=recall, launches=launches)
+    return dict(k1=e, retrieve=out)
+
+
+OQ = 1024                  # bench.py's oracle queries
+
+
+def _near_tie_slots(ids_a, ids_b, queries, rows, metric):
+    """Slots where two oracles' ids differ, with both ids' distances to
+    the query recomputed one pair at a time: -> (slots, max distance gap)."""
+    from crypto_rec_tpu_torch.ops.distances import pairwise_distances
+
+    diff = (ids_a != ids_b).nonzero()
+    gap = 0.0
+    for qi, slot in diff.tolist():
+        pair = rows[torch.stack([ids_a[qi, slot], ids_b[qi, slot]]).long()]
+        d = pairwise_distances(queries[qi:qi + 1], pair, metric)[0]
+        gap = max(gap, float((d[0] - d[1]).abs()))
+    return int(diff.shape[0]), gap
+
+
+def streamed_oracle_2m(corpus, queries_all):
+    """Phase 5's 2M x 128 corpus copied to the host: exact_nearest_streamed
+    over OQ queries in 2^18-row slices against the resident exact_nearest;
+    ids equal but where two rows' distances lie within 1e-5 (f32 products
+    of other shapes round differently)."""
+    from crypto_rec_tpu_torch.ops.oracle import exact_nearest, exact_nearest_streamed
+
+    host = corpus.cpu().numpy()
+    qs = queries_all[:OQ]
+    block = 1 << 18
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd, si = exact_nearest_streamed(qs, host, "cosine", TOP_K, corpus_block=block)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rd, ri = exact_nearest(qs, corpus, "cosine", TOP_K, block_rows=128)
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    n_diff, gap = _near_tie_slots(si, ri, qs, corpus, "cosine")
+    max_d = float((sd - rd).abs().max())
+    slices = -(-host.shape[0] // block)
+    log(f"phase 5 streamed oracle ({host.shape[0]} x {host.shape[1]} on the host, "
+        f"{slices} slices of {block} rows, {OQ} queries, top-{TOP_K}): {t_stream:.2f} s "
+        f"(resident exact_nearest {t_res:.2f} s); {n_diff} ids differ from the resident "
+        f"oracle's (largest distance gap between the two ids {gap:.3g}), max |dist diff| "
+        f"{max_d:.3g}")
+    if gap > 1e-5 or max_d > 1e-5:
+        raise AssertionError("streamed oracle disagrees with the resident oracle")
+    del host
+    return dict(rows=int(corpus.shape[0]), queries=OQ, corpus_block=block, slices=slices,
+                seconds=t_stream, resident_seconds=t_res, ids_differ=n_diff,
+                max_tie_gap=gap, max_dist_diff=max_d)
+
+
 # phase 19: bench_100m.py's planted recipe, cut from 100M rows to 16M (4
 # chunks of 4M: the 8.2 GB of int8 slabs stay in the card's host memory);
 # k = 15 keeps ~122 rows a bucket per chunk (100M at k = 16: ~127)
@@ -1514,6 +1662,10 @@ def phase19():
     n_planted = q * tk
     stride = n // n_planted
     chunk_rows = -(-n // ST["chunks"])
+    # the f32 rows stay on the host for the streamed oracle, as many whole
+    # chunks as fit beside the pinned slabs
+    kept = oracle_chunks(chunk_rows * d * 4)
+    host_rows = np.empty((min(n, kept * chunk_rows), d), dtype=np.float32)
 
     def chunk_source(ci):
         lo, hi = ci * chunk_rows, min(n, (ci + 1) * chunk_rows)
@@ -1523,7 +1675,10 @@ def phase19():
                           device=dev)
         x[js * stride - lo] = queries[js // tk] + 0.15 * torch.randn(
             len(js), d, generator=g, device=dev)
-        return x.cpu().numpy()
+        rows = x.cpu().numpy()
+        if ci < kept:
+            host_rows[lo:hi] = rows
+        return rows
 
     t0 = time.perf_counter()
     sidx = build_streamed_index(gen(SEED + 61), chunk_source, n, d, ST["k"], ST["L"],
@@ -1607,11 +1762,58 @@ def phase19():
         raise AssertionError(f"streamed recall {recall:.4f} < {ST['floor']}")
     if peak >= 3 * chunk_bytes:
         raise AssertionError(f"streamed: peak {peak} B >= 3 chunks ({3 * chunk_bytes} B)")
-    del sidx, queries, truth, vals, ids
+    del sidx, vals, ids
     torch.cuda.empty_cache()
+    oracle = streamed_oracle_16m(host_rows, queries[:OQ], truth[:OQ], n, kept)
+    del queries, truth, host_rows
     return dict(launches=launches, stats=stats, rounds=rounds, round_medians_ms=med,
                 round_rates_gb_per_s=rates, build_s=t_build, peak_bytes=peak, chunk_bytes=chunk_bytes, recall=recall,
-                floor=ST["floor"], scale_cut=f"100M -> {n} rows", k1=k1)
+                floor=ST["floor"], scale_cut=f"100M -> {n} rows", k1=k1, oracle=oracle)
+
+
+def oracle_chunks(chunk_f32_bytes):
+    """How many of phase 19's chunks' f32 rows the host can keep beside the
+    pinned slabs: all of them when MemAvailable exceeds their bytes, the
+    pinned index (~8.5 GB) and 8 GB to spare; else the whole chunks that
+    fit (printed)."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    spare = avail - 8.5e9 - 8e9
+    kept = max(1, min(ST["chunks"], int(spare // chunk_f32_bytes)))
+    if kept < ST["chunks"]:
+        log(f"phase 19: the host has {avail / 1e9:.1f} GB available, too little for all "
+            f"{ST['chunks']} chunks' f32 rows beside the pinned index: the streamed oracle "
+            f"runs over {kept} chunks")
+    return kept
+
+
+def streamed_oracle_16m(host_rows, qs, truth, n, kept):
+    """exact_nearest_streamed over phase 19's f32 rows on the host, OQ
+    queries in 2^20-row slices (bench.py's HOST_ORACLE use): its agreement
+    with the planted truth (the share of planted rows among the oracle's
+    top-10, >= 0.99) and its seconds.  With fewer than all chunks kept,
+    planted rows past them do not count."""
+    from crypto_rec_tpu_torch.ops.oracle import exact_nearest_streamed
+
+    rows = host_rows.shape[0]
+    block = 1 << 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ids = exact_nearest_streamed(qs, host_rows, "cosine", TOP_K, corpus_block=block)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hit = (ids[:, None, :] == truth.long()[:, :, None]).any(-1)
+    agree = float(hit[truth < rows].float().mean())
+    cut = "" if rows == n else f"; cut to {kept} chunks ({rows} rows) by host memory"
+    log(f"phase 19 streamed oracle ({rows} x {host_rows.shape[1]} f32 rows on the host, "
+        f"{-(-rows // block)} slices of {block}, {qs.shape[0]} queries, top-{TOP_K}): "
+        f"{secs:.2f} s; agreement with the planted truth {agree:.4f}{cut}")
+    if agree < 0.99:
+        raise AssertionError(f"streamed oracle: agreement {agree:.4f} with the planted truth")
+    return dict(rows=rows, host_gb=host_rows.nbytes / 1e9, queries=int(qs.shape[0]),
+                corpus_block=block, seconds=secs, agreement=agree,
+                cut=None if rows == n else f"{kept} of {ST['chunks']} chunks (host memory)")
 
 
 # phase 20: benchmarks/bench_ivf.py's point on phase 5's corpus
@@ -1725,6 +1927,98 @@ def phase21(ds):
             raise AssertionError(f"serve_cli recommend: rc {rc}, launches {launches}")
         res["recommend"] = dict(seconds=wall, lines=len(lines), launches=launches)
     return res
+
+
+# phase 23: the top-k sites repaired to tie order (equal values lowest
+# index first, as lax.top_k): each on tied inputs on both devices
+TIES = dict(n=100_000, d=64, patterns=300, q=1024, k=10, cube_q=32768, rerank_q=8192,
+            dedup_q=8192)
+
+
+def _norm2_rows(rng, n, d):
+    """n rows of four entries +-1 (norm 2): every dot and squared norm is
+    exact in f32, so equal rows give bit-equal distances on both devices."""
+    x = np.zeros((n, d), np.float32)
+    cols = np.argsort(rng.random((n, d)), axis=1)[:, :4]
+    np.put_along_axis(x, cols, rng.choice([-1.0, 1.0], size=(n, 4)).astype(np.float32), 1)
+    return x
+
+
+def _differ(a, b):
+    """(rows whose sets differ, rows whose order differs) of two [q, k]
+    id arrays."""
+    a, b = a.cpu(), b.cpu()
+    sets = sum(set(x) != set(y) for x, y in zip(a.tolist(), b.tolist()))
+    return sets, int((a != b).any(1).sum())
+
+
+def phase23():
+    """Each `torch.topk` site repaired to ops/topk's tie order, on inputs
+    full of exact ties, on the card and on the CPU: exact_nearest and
+    exact_nearest_streamed on duplicated rows (both metrics),
+    directed_probe_vertices with equal bit margins and subset scores
+    (m_bits 5 and None), rerank_exact on duplicated candidates, and the
+    epilogue's dedup top-k (`_dedup_topk_pairs`, also candidate_ids_scored's
+    stage 2) on tied scores.  Differing sets (and orders) must be 0."""
+    from crypto_rec_tpu_torch.models.lsh.hypercube import (
+        build_hypercube, directed_probe_vertices,
+    )
+    from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
+    from crypto_rec_tpu_torch.models.lsh.index import rerank_exact
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _dedup_topk_pairs
+    from crypto_rec_tpu_torch.ops.oracle import exact_nearest, exact_nearest_streamed
+
+    rng = np.random.default_rng(SEED + 230)
+    cpu = torch.device("cpu")
+    t = TIES
+    base = _norm2_rows(rng, t["patterns"], t["d"])
+    x = torch.from_numpy(base[rng.integers(0, t["patterns"], t["n"])])
+    qs = torch.from_numpy(base[rng.integers(0, t["patterns"], t["q"])])
+    sites = {}
+
+    def both(name, fn, *args):
+        """fn on CPU tensors and on their card copies -> the ids' differences."""
+        on = [fn(*(a.to(dv) if isinstance(a, torch.Tensor) else a for a in args))
+              for dv in (cpu, DEV)]
+        torch.cuda.synchronize()
+        sets, order = _differ(on[0], on[1])
+        sites[name] = dict(rows=int(on[0].shape[0]), sets_differ=sets, order_differs=order)
+        log(f"phase 23 {name}: {sets} of {on[0].shape[0]} sets differ card against CPU, "
+            f"{order} orders")
+
+    for metric in ("cosine", "euclidean"):
+        both(f"exact_nearest {metric} ({t['n']} rows of {t['patterns']} patterns)",
+             lambda a, b: exact_nearest(a, b, metric, t["k"])[1], qs, x)
+        both(f"exact_nearest_streamed {metric} (slices of 2^15)",
+             lambda a: exact_nearest_streamed(a, x.numpy(), metric, t["k"],
+                                              corpus_block=1 << 15)[1], qs)
+    d, kb = 16, 13
+    proj = torch.from_numpy(rng.integers(-1, 2, size=(d, kb)).astype(np.float32))
+    cx = torch.from_numpy(rng.integers(-2, 3, size=(4096, d)).astype(np.float32))
+    cq = torch.from_numpy(rng.integers(-2, 3, size=(t["cube_q"], d)).astype(np.float32))
+
+    def probes(q, p, m_bits, probes_n):
+        cube = build_hypercube(None, cx.to(q.device), "cosine", kb, 1.0,
+                               family=CosineLsh(p, kb, 1))
+        return directed_probe_vertices(cube, q, probes_n, m_bits=m_bits)
+
+    for m_bits, probes_n in ((5, 16), (None, 64)):
+        both(f"directed_probe_vertices (integer margins, m_bits {m_bits}, {probes_n} probes)",
+             lambda q, p: probes(q, p, m_bits, probes_n), cq, proj)
+    rq = torch.from_numpy(_norm2_rows(rng, t["rerank_q"], t["d"]))
+    cand = torch.from_numpy(np.stack([rng.permutation(t["n"])[:40]
+                                      for _ in range(t["rerank_q"])]).astype(np.int32))
+    for metric in ("cosine", "euclidean"):
+        both(f"rerank_exact {metric} (40 candidates)",
+             lambda c, q, i: rerank_exact(c, metric, q, i, t["k"])[1], x, rq, cand)
+    ids = torch.from_numpy(rng.integers(0, 2100, size=(t["dedup_q"], 96)).astype(np.int32))
+    sc = (ids % 4).float()
+    both("_dedup_topk_pairs (scores in 4 levels, 96 survivors, top-20)",
+         lambda s_, i_: _dedup_topk_pairs(s_, i_, 2000, 20)[1], sc, ids)
+    bad = {k: v for k, v in sites.items() if v["sets_differ"] or v["order_differs"]}
+    if bad:
+        raise AssertionError(f"tie order differs card against CPU: {bad}")
+    return sites
 
 
 # phase 22: the sharded engines (parallel/) on phase 5's corpus and index
@@ -1939,7 +2233,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "crypto_rec_tpu_torch")):
+        print("chip_smoke: no crypto_rec_tpu_torch/ beside the script; run it from the "
+              "root of a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, here)
     from crypto_rec_tpu_torch import checkpoint
     from crypto_rec_tpu_torch.config import RecConfig
     from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
@@ -2119,6 +2418,7 @@ def main() -> int:
         f"{oracle_recall:.4f}")
     if oracle_recall < 0.99:
         raise AssertionError("retrieval disagrees with the exact oracle")
+    oracle_streamed = streamed_oracle_2m(corpus, queries_all)
 
     # ---- 6. lsh_phase(engine="fused") ----
     # phases 6-7 are counted apart: they must reach the kernels too
@@ -2205,6 +2505,10 @@ def main() -> int:
                       BATCHES[0] / e2e[BATCHES[0]]["retrieval_ms"] * 1e3)
     k1_sharded = sharded["mp4"].pop("k1")
 
+    # ---- 23. the repaired top-k sites, card against CPU on tied inputs ----
+    ties = phase23()
+    k1_per_row = nonkernel["k1_per_row"]["k1"]
+
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
 
@@ -2231,11 +2535,14 @@ def main() -> int:
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
-             launches=launches["slab_window_dots"], max_abs_err=k1_err,
+             launches=launches["slab_window_dots"],
+             max_abs_err=max(k1_err, k1_per_row["max_abs_err"]),
              **{key: k1_main[key] for key in row_keys}, card=CARD,
-             geometries=[k1_main] + k1_geoms + [streamed["k1"], k1_sharded],
+             geometries=[k1_main] + k1_geoms + [streamed["k1"], k1_sharded, k1_per_row],
              path_launches=dict(path_launches("slab_window_dots"),
                                 scored_sets=scored["launches"]["slab_window_dots"],
+                                **{f"per-row int8 {m}": r["launches"]["slab_window_dots"]
+                                   for m, r in nonkernel["k1_per_row"]["retrieve"].items()},
                                 streamed=streamed["launches"]["slab_window_dots"],
                                 program_fused=program_fused["launches"]["slab_window_dots"],
                                 serve_unpacked=nonkernel["serve_unpacked"]["launches"][
@@ -2296,6 +2603,7 @@ def main() -> int:
         r.pop("k1", None)
         r.pop("k2")
     streamed.pop("k1")
+    nonkernel["k1_per_row"].pop("k1")
     wall = time.perf_counter() - T_START
     log(f"chip_smoke wall time: {wall:.1f} s")
     print(json.dumps({"kernels": kernels, "e2e": e2e, "paths": paths,
@@ -2303,7 +2611,7 @@ def main() -> int:
                       "cv": cv, "scored_sets": scored, "card_vs_cpu": card_vs_cpu,
                       "program_fused": program_fused, "nonkernel_paths": nonkernel,
                       "streamed": streamed, "ivf": ivf, "clis": clis, "sharded": sharded,
-                      "wall_s": wall,
+                      "oracle_streamed": oracle_streamed, "ties": ties, "wall_s": wall,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@
 // (slab_window_dots, pallas_call at :360; body _make_kernel_fused
 // :176-244).  Same function as the row-wise body in slabscore.cu: for
 // every (query, window) pair p, dots[p, lane] = query . slab[row0[p] + lane]
-// for lane < win, -inf outside [head, head + size) when mask != 0.
+// for lane < win, times scale[row0[p] + lane] when a per-row scale is given
+// (the JAX package multiplies its kernel's output by the gathered scale
+// windows, slabscore.py:381-395), -inf outside [head, head + size) when
+// mask != 0.
 //
 // What bounds it on the H100: the unique bytes, each slab row covered by a
 // window read once plus the dots written once (at the CF point ~1.9 GB of
@@ -49,6 +52,10 @@
 //   schedule (RT = 32, M = 32), a simple loop over shared memory.
 // - Offsets into dots are 64-bit: q T win exceeds 2^31 on the euclidean
 //   MultiCube.
+// - The per-row scale (per-row int8 packs) is applied where each lane is
+//   stored, the one place its absolute slab row is known: one 4-byte load
+//   beside each store (a tile's 1 KB of scales, cached), and the dots are
+//   still written once.
 
 #include "slabrow.cuh"
 #include "tilemma.cuh"
@@ -70,6 +77,7 @@ enum Meta { kPair = 0, kRow0, kHead, kHeadEnd, kMeta };
 struct Args {
   const uint8_t* slab;
   const float* queries;      // [q, d] f32, 16-byte aligned
+  const float* scale;        // [n_rows] f32 per slab row, or null: no scale
   const int32_t* meta;       // [kMeta, P] (mask on) or [kHead, P]: pair id, row0,
                              // head, head + size, in the pairs' row0 order
   const int32_t* item_tile;  // [I]
@@ -79,14 +87,21 @@ struct Args {
   int n_items, P, T, win, d, n_rows, mask;
 };
 
+// the stored value of a dot against slab row `row` (absolute): times the
+// row's scale when there is one, -inf on a masked lane
+__device__ __forceinline__ float lane_value(const Args& a, int row, int lane, int h0,
+                                            int h1, float v) {
+  if (a.scale) v *= __ldg(a.scale + row);
+  return a.mask && (lane < h0 || lane >= h1) ? __int_as_float(0xff800000) : v;
+}
+
 // one output lane of pair slot m at tile row `row` (absolute)
 __device__ __forceinline__ void put(const Args& a, const int (*s_meta)[64], int m,
                                     int row, float v) {
   const int lane = row - s_meta[kRow0][m];
   if (lane < 0 || lane >= a.win) return;
-  if (a.mask && (lane < s_meta[kHead][m] || lane >= s_meta[kHeadEnd][m]))
-    v = __int_as_float(0xff800000);
-  a.dots[(size_t)s_meta[kPair][m] * a.win + lane] = v;
+  a.dots[(size_t)s_meta[kPair][m] * a.win + lane] =
+      lane_value(a, row, lane, s_meta[kHead][m], s_meta[kHeadEnd][m], v);
 }
 
 struct Item {
@@ -274,8 +289,7 @@ tile_dots_mma(Args a) {
     float* dst = a.dots + (size_t)s_meta[kPair][m] * a.win;
     const float* src = o_s + m * OS + r0 - tile0;
     for (int lane = lo + l; lane < hi; lane += 32)
-      dst[lane] = a.mask && (lane < h0 || lane >= h1) ? __int_as_float(0xff800000)
-                                                      : src[lane];
+      dst[lane] = lane_value(a, r0 + lane, lane, h0, h1, src[lane]);
   }
 }
 
@@ -333,15 +347,17 @@ int launch_mma(const Args& a, cudaStream_t stream) {
 
 // rt / m: the tile rows and pairs per item the wrapper's work list used;
 // they must be this kernel's (int8 / bf16: 256 rows at d <= 128, 128 at
-// d = 256, 32 pairs; f32: 32 and 32).
+// d = 256, 32 pairs; f32: 32 and 32).  scale: f32 [n_rows] or null.
 extern "C" int crt_slab_tile_dots(const void* slab, const void* queries,
+                                  const void* scale,
                                   const void* meta, const void* item_tile,
                                   const void* item_lo, const void* item_cnt,
                                   void* dots, int n_items, int P, int T, int win,
                                   int d,
                                   int n_rows, int mask, int dtype, int rt, int m,
                                   void* stream) {
-  Args a{(const uint8_t*)slab, (const float*)queries, (const int32_t*)meta, (const int32_t*)item_tile,
+  Args a{(const uint8_t*)slab, (const float*)queries, (const float*)scale,
+         (const int32_t*)meta, (const int32_t*)item_tile,
          (const int32_t*)item_lo, (const int32_t*)item_cnt, (float*)dots,
          n_items, P, T, win, d, n_rows, mask};
   cudaStream_t s = (cudaStream_t)stream;

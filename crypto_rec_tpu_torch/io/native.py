@@ -13,11 +13,11 @@ nothing falls back to the Python path.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -35,23 +35,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcrt_ingest_{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The ingest library, compiled on first use (raises on failure)."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build in a private directory, then rename: concurrent builds
-        # never load a half-written library
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            lib_tmp = os.path.join(tmp, out.name)
-            res = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", lib_tmp],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"g++ {SRC.name} failed ({res.returncode}):\n"
-                                   f"{res.stderr}")
-            os.replace(lib_tmp, out)
-    lib = ctypes.CDLL(str(out))
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _build(out: Path) -> None:
+    """Compile the library to `out` in a private directory, then rename:
+    concurrent builds never load a half-written library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib_tmp = os.path.join(tmp, out.name)
+        res = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", lib_tmp],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ {SRC.name} failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(lib_tmp, out)
+
+
+def load_library(rebuild: bool = False) -> ctypes.CDLL:
+    """The ingest library, compiled on first use (raises on failure);
+    rebuild=True compiles it again even when it is built and loaded."""
+    global _lib
+    with _lock:
+        if _lib is not None and not rebuild:
+            return _lib
+        out = library_path()
+        if rebuild or not out.exists():
+            _build(out)
+        _lib = _bind(ctypes.CDLL(str(out)))
+        return _lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads here (False, not an error,
+    where g++ or the loader fails)."""
+    try:
+        load_library()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C functions' argument and result types."""
     lib.crt_ingest_run.restype = ctypes.c_void_p
     lib.crt_ingest_run.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
                                    ctypes.c_char, ctypes.c_int]

@@ -51,6 +51,12 @@ class UserMatrix:
     def n_coins(self) -> int:
         return self.ratings.shape[1]
 
+    def select(self, idx) -> "UserMatrix":
+        """The users at `idx` (an index array), in that order."""
+        idx = np.asarray(idx)
+        return UserMatrix(ratings=self.ratings[idx], known=self.known[idx],
+                          mean=self.mean[idx], ids=[self.ids[int(i)] for i in idx])
+
 
 def _finalize(acc: np.ndarray, known: np.ndarray, ids: Sequence[str]) -> UserMatrix:
     """Shared tail of both matrix builds: drop useless rows, impute means."""

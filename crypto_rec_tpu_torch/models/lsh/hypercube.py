@@ -39,6 +39,7 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _dedup_topk_pairs, _window_offsets, augment_queries, rank_to_distance,
     slab_window_dots,
 )
+from crypto_rec_tpu_torch.ops.topk import topk_asc
 
 _GROUP = 8      # windows per replicated query row of the shared-slab launch
 
@@ -140,25 +141,30 @@ def _bit_margins(cube: Hypercube, queries: torch.Tensor) -> torch.Tensor:
 
 
 def directed_probe_vertices(
-    cube: Hypercube, queries: torch.Tensor, probes: int
+    cube: Hypercube, queries: torch.Tensor, probes: int,
+    m_bits: Optional[int] = None,
 ) -> torch.Tensor:
     """Query-directed multiprobe (Lv et al., VLDB'07): [q, d] -> [q, probes]
     int32 vertex ids, home vertex first.  Each query enumerates the subsets
-    of its m least-confident bits (2 beyond ceil(log2(probes)), at most
-    13), scores a subset by its summed margin and probes the `probes`
-    lowest; the empty subset scores 0, so home leads.  The XOR masks are
-    built with integer ops from the selected subset indices.  With fewer
-    than `probes` subsets (tiny k) the rest are mask 0, the home vertex
-    again."""
+    of its m = min(m_bits, k, 13) least-confident bits (m_bits None: 2
+    beyond ceil(log2(probes))), scores a subset by its summed margin and
+    probes the `probes` lowest; the empty subset scores 0, so home leads.
+    Equal margins and equal subset scores go to the lower bit or subset
+    index (`topk_asc`), as JAX's `lax.top_k` of the negated values.  The
+    XOR masks are built with integer ops from the selected subset indices.
+    With fewer than `probes` subsets (tiny k) the rest are mask 0, the home
+    vertex again."""
     k = cube.k
     margins = _bit_margins(cube, queries)                            # [q, k]
-    m = min((max(2, probes - 1)).bit_length() + 2, k, 13)            # <= 8192 subsets
-    small, pos = torch.topk(margins, m, dim=1, largest=False)        # [q, m] ascending
+    if m_bits is None:
+        m_bits = (max(2, probes - 1)).bit_length() + 2
+    m = min(m_bits, k, 13)                                           # <= 8192 subsets
+    small, pos = topk_asc(margins, m)                                # [q, m] ascending
     dev = margins.device
     subsets = (torch.arange(1 << m, device=dev)[:, None]
                >> torch.arange(m, device=dev)[None, :]) & 1          # [2^m, m]
     score = small @ subsets.float().T                                # [q, 2^m]
-    _, sel = torch.topk(score, min(probes, 1 << m), dim=1, largest=False)
+    _, sel = topk_asc(score, min(probes, 1 << m))
     bitw = torch.bitwise_left_shift(torch.ones_like(pos), k - 1 - pos)   # MSB-first
     masks = torch.zeros_like(sel)
     for j in range(m):

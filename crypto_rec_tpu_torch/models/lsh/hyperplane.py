@@ -46,6 +46,12 @@ class CosineLsh:
         )
         return cls(proj=proj.to(device), k=k, L=L)
 
+    def hash_bits(self, x: torch.Tensor) -> torch.Tensor:
+        """[n, d] -> [n, L, k] int32 sign bits (1 iff r.x >= 0): one f32
+        product, as the JAX package computes it outside any kernel."""
+        bits = (torch.matmul(x.float(), self.proj) >= 0.0).to(torch.int32)
+        return bits.reshape(x.shape[0], self.L, self.k)
+
     def bucket_ids(self, x: torch.Tensor) -> torch.Tensor:
         """[n, d] -> [n, L] int32 bucket ids, bits packed MSB-first
         (cosine_g_gen.hpp:62-72: first h occupies the highest bit)."""

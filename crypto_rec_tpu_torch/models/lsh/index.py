@@ -41,7 +41,7 @@ from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
 from crypto_rec_tpu_torch.models.lsh.pstable import PStableLsh
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _dedup_topk_pairs, _window_offsets, augment_queries, euclid_window_offsets,
-    lane_rows, packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_window_dots,
+    packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_topk, slab_window_dots,
 )
 from crypto_rec_tpu_torch.ops.topk import topk_desc
 
@@ -680,12 +680,13 @@ def candidate_ids_scored(
     ids (-1 pad), ranked by cosine similarity (or the augmented euclidean
     rank x.q - |x|^2/2).
 
-    K1 dots every lane of one maskless window per table; stage 1 keeps the
-    ceil(budget / L) best lanes of each window with an exact `torch.topk`
-    (the TPU ran `approx_max_k`, so the port's survivors are a superset);
-    the survivors are sorted by id (a stable sort, scores gathered by its
-    permutation), duplicates and pad rows dropped, and the best `budget`
-    kept.  >= kk distinct better rows in one window imply >= kk globally
+    K1 dots every lane of one maskless window per table; `slab_topk`'s
+    per-table stage 1 keeps the kk = ceil(budget / L) best lanes of each
+    window with an exact `torch.topk` (the TPU ran `approx_max_k`, so the
+    port's survivors are a superset); its stage 2 sorts the survivors by
+    id, drops duplicates and pad rows and keeps the best `budget`, equal
+    scores lowest id first (as JAX's `lax.top_k` over the id-sorted
+    scores).  >= kk distinct better rows in one window imply >= kk globally
     better rows, so the set holds the global score-top-ceil(budget / L).
 
     Needs a packed index with scale-free slabs: cosine (f32, bf16 or
@@ -700,8 +701,6 @@ def candidate_ids_scored(
             "or augmented euclidean slabs only (use candidate_ids for the general path)"
         )
     L = index.sorted_rows.shape[0]
-    n = index.n_rows
-    q = queries.shape[0]
     q_buckets, q_detailed = query_hashes(index, queries)
     if euclid_aug:
         s0, sizes = euclid_window_offsets(index.bucket_starts, index.packed_detailed,
@@ -712,21 +711,9 @@ def candidate_ids_scored(
         qv = queries.float()
         qv = qv / torch.clamp(_row_norms(qv), min=1e-30)
     dots, a0 = slab_window_dots(index.packed, s0, sizes, qv, per_table, mask=False)
-    win = dots.shape[2]
-    kk = min(-(-budget // L), win)
-    s1, lane = torch.topk(dots.reshape(q * L, win), kk, dim=1)
-    s1 = s1.reshape(q, L * kk)
-    l_base = torch.arange(L, device=dots.device)[None, :, None] * win
-    ids1 = lane_rows((l_base + lane.reshape(q, L, kk)).reshape(q, L * kk), a0,
-                     index.packed_rows, win)
-    ids1 = torch.where(s1 > float("-inf"), ids1, n)
-    ids_s, perm = torch.sort(ids1, dim=1, stable=True)
-    sc_s = torch.gather(s1, 1, perm)
-    dup = torch.zeros_like(ids_s, dtype=torch.bool)
-    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
-    sc_s = torch.where(dup | (ids_s >= n), float("-inf"), sc_s)
-    s2, pos2 = torch.topk(sc_s, min(budget, L * kk), dim=1)
-    out = torch.where(s2 > float("-inf"), torch.gather(ids_s, 1, pos2), -1).to(torch.int32)
+    kk = min(-(-budget // L), dots.shape[2])
+    _, out = slab_topk(dots, a0, index.packed_rows, index.n_rows, min(budget, L * kk),
+                       exact=False, stage1_per_table=kk)
     return torch.nn.functional.pad(out, (0, budget - out.shape[1]), value=-1)
 
 
@@ -739,7 +726,8 @@ def rerank_exact(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact f32 rescoring of a small candidate list (the quantized slab
     paths' second stage): one [q, m, d] row gather, then cosine
-    similarity or negated euclidean distance."""
+    similarity or negated euclidean distance; equal scores keep the
+    candidate list's order (`topk_desc`, as JAX's `lax.top_k`)."""
     valid = ids >= 0
     cand = corpus[torch.clamp(ids, min=0).long()].float()         # [q, m, d]
     qv = queries.float()
@@ -752,7 +740,7 @@ def rerank_exact(
         diff = cand - qv[:, None, :]
         score = -torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2), min=0.0))
     score = torch.where(valid, score, float("-inf"))
-    s, pos = torch.topk(score, top_k, dim=1)
+    s, pos = topk_desc(score, top_k)          # equal scores: the earlier candidate
     out = torch.gather(ids, 1, pos)
     return s, torch.where(s > float("-inf"), out, -1)
 

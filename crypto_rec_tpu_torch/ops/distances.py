@@ -58,3 +58,15 @@ def pairwise_distances(a: torch.Tensor, b: torch.Tensor, metric: str) -> torch.T
     if metric == "cosine":
         return cosine_distance_matrix(a, b)
     raise ValueError(f"unknown metric {metric!r}")
+
+
+def blocked_pairwise_distances(
+    a: torch.Tensor, b: torch.Tensor, metric: str, block_rows: int = 4096
+) -> torch.Tensor:
+    """pairwise_distances computed one [block_rows, n] product at a time,
+    so the product's temporaries never exceed one block's; the [q, n]
+    result is written block by block."""
+    out = torch.empty(a.shape[0], b.shape[0], dtype=torch.float32, device=a.device)
+    for s in range(0, a.shape[0], block_rows):
+        out[s:s + block_rows] = pairwise_distances(a[s:s + block_rows], b, metric)
+    return out

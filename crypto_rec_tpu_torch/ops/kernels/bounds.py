@@ -94,11 +94,12 @@ def variant_call(packed: torch.Tensor, starts, queries, per_table: int, mode: st
 
 
 def k1_call(packed: torch.Tensor, starts, sizes, queries, per_table: int,
-            shared_slab: bool = False) -> dict:
+            shared_slab: bool = False, packed_scale=None) -> dict:
     """K1's bound for one `slab_window_dots` call (dots [q, T, win] f32 and
     aligned starts [q, T] int32 written): on bf16 tensor cores for int8 and
     bf16 slabs, on f32 FFMA for f32 slabs; the f32 FFMA bound also stands
-    beside it as `ffma_bound_ms`."""
+    beside it as `ffma_bound_ms`.  With a per-row packed_scale each covered
+    row also reads its 4-byte f32 scale."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry
 
     win, aligned, row0, _, _ = _geometry(packed, starts, sizes, per_table, shared_slab)
@@ -106,7 +107,8 @@ def k1_call(packed: torch.Tensor, starts, sizes, queries, per_table: int,
     n_rows = packed.shape[0] * packed.shape[1]
     q, T = starts.shape
     out_bytes = q * T * (win * 4 + 4)
-    nbytes = (covered_rows(row0, win, n_rows) * d * packed.element_size()
+    row_bytes = d * packed.element_size() + (4 if packed_scale is not None else 0)
+    nbytes = (covered_rows(row0, win, n_rows) * row_bytes
               + tensor_bytes(queries.float()) + out_bytes)
     flops = 2.0 * q * T * win * d
     res = bound(nbytes, flops, F32_FFMA if packed.dtype == torch.float32 else BF16_TC)

@@ -36,9 +36,9 @@ _SIGNATURES = {
     # (x, proj, out, n, d, k, L, stream) -> cudaError_t
     "crt_signproj": (_P, _P, _P, _I, _I, _I, _I, _P),
     "crt_signproj_prev": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # (slab, queries, meta, item_tile, item_lo, item_cnt, dots,
+    # (slab, queries, scale, meta, item_tile, item_lo, item_cnt, dots,
     #  n_items, P, T, win, d, n_rows, mask, dtype, rt, m, stream)
-    "crt_slab_tile_dots": (_P, _P, _P, _P, _P, _P, _P,
+    "crt_slab_tile_dots": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, head, size, dots, q, T, win, d, mask, dtype, stream)
     "crt_slab_window_dots_rowwise": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

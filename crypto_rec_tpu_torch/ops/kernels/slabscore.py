@@ -28,7 +28,10 @@ pre-normalized by pack_index, so the dot IS the similarity; euclidean
 slabs are augmented ([x, -|x|^2/2, 0-pad]) and dotted with [q, s, 0-pad],
 so the dot is the rank x.q - |x|^2/2 (`packed_retrieve_pallas_euclid`).
 int8 global-scale slabs rank raw dots; callers dequantize scores with the
-stored scalar.  shared_slab=True is the hypercube form: every window reads
+stored scalar.  `packed_scale` ([L, n_pad] f32, per-row int8 packs) scales
+every lane by its slab row's scale, as the JAX package does after its
+kernel: the Hopper kernel multiplies each lane as it stores it (pad rows
+carry scale 1).  shared_slab=True is the hypercube form: every window reads
 one slab (for the MultiCube, C cube segments laid end to end).
 """
 
@@ -39,6 +42,7 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.topk import topk_desc
 
 ALIGN = 32         # window starts align down to this many rows
 WIN_ROUND = 128    # window length rounds up to a multiple of this
@@ -125,6 +129,19 @@ def _check_sizes(sizes, mask: bool) -> None:
         raise ValueError("mask=True needs the window sizes")
 
 
+def _check_scale(packed, packed_scale, shared_slab: bool) -> None:
+    """packed_scale: None, or f32 [L, n_pad] on the slab's device."""
+    if packed_scale is None:
+        return
+    if shared_slab:
+        raise ValueError("shared_slab covers scale-free slabs only")
+    if (packed_scale.dtype != torch.float32 or packed_scale.shape != packed.shape[:2]
+            or packed_scale.device != packed.device):
+        raise ValueError(f"packed_scale must be float32 {list(packed.shape[:2])} on the "
+                         f"slab's device, got {packed_scale.dtype} "
+                         f"{list(packed_scale.shape)} on {packed_scale.device}")
+
+
 def _mask(dots, head, size):
     lane = torch.arange(dots.shape[2], device=dots.device)
     valid = (lane >= head[..., None]) & (lane < (head + size)[..., None])
@@ -139,9 +156,12 @@ def slab_window_dots_plain(
     per_table: int,
     mask: bool = True,
     shared_slab: bool = False,
+    packed_scale=None,       # [L, n_pad] f32 per-row scales, or None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: gather [q, T, win, d], upcast, f32 einsum."""
+    """Plain PyTorch K1: gather [q, T, win, d], upcast, f32 einsum; with
+    packed_scale, times the [q, T, win] gathered scale windows."""
     _check_sizes(sizes, mask)
+    _check_scale(packed, packed_scale, shared_slab)
     win, aligned, row0, head, size = _geometry(
         packed, starts, sizes, per_table, shared_slab
     )
@@ -150,6 +170,9 @@ def slab_window_dots_plain(
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
     for s, e, cand in window_chunks(packed, row0, win):
         dots[s:e] = torch.einsum("qd,qtwd->qtw", qv[s:e], cand.float())
+    if packed_scale is not None:
+        lane = torch.arange(win, device=packed.device)
+        dots *= packed_scale.reshape(-1)[row0.long()[:, :, None] + lane]
     if mask:
         dots = _mask(dots, head, size)
     return dots, aligned
@@ -238,16 +261,18 @@ def probe_tile_rows(d: int) -> int:
 
 
 def tile_launch(packed: torch.Tensor, queries: torch.Tensor, plan,
-                dots: torch.Tensor, mask: bool) -> None:
+                dots: torch.Tensor, mask: bool, scale=None) -> None:
     """Launch the tile-major kernel (`csrc/slabtile.cu`) on a plan from
     `tile_plan` and contiguous, 16-byte aligned f32 queries [q, d].
-    Writes dots [q, T, win]."""
+    Writes dots [q, T, win]; scale: contiguous f32 [L, n_pad] per-row
+    scales, or None."""
     meta, item_tile, item_lo, item_cnt = plan
     d = packed.shape[2]
     rt, m = tile_shape(packed.dtype, d)
     with torch.cuda.device(packed.device):
         err = build.library().crt_slab_tile_dots(
-            packed.data_ptr(), queries.data_ptr(), meta.data_ptr(), item_tile.data_ptr(),
+            packed.data_ptr(), queries.data_ptr(), None if scale is None else scale.data_ptr(),
+            meta.data_ptr(), item_tile.data_ptr(),
             item_lo.data_ptr(), item_cnt.data_ptr(), dots.data_ptr(), item_tile.numel(),
             meta.shape[1], dots.shape[1], dots.shape[2], d,
             packed.shape[0] * packed.shape[1], int(mask),
@@ -289,20 +314,25 @@ def slab_window_dots(
     per_table: int,
     mask: bool = True,
     shared_slab: bool = False,
+    packed_scale=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (dots [q, T, win] f32, aligned window starts [q, T] int32, LOCAL
     to each table).  Arguments as `slab_window_dots_plain`.
 
     shared_slab=True: `packed` is ONE slab ([1, n_pad, d]) that every one
     of the starts.shape[1] windows reads (the hypercube form).
+    packed_scale: [L, n_pad] f32 per-row scales (pad rows 1): every lane is
+    multiplied by its slab row's scale before the mask; not with
+    shared_slab.
 
     CPU tensors take the plain version; CUDA tensors the tile-major Hopper
-    kernel (`csrc/slabtile.cu`); its work list (`tile_plan`) runs here on
-    the device, inside K1's time."""
+    kernel (`csrc/slabtile.cu`), scale included; its work list
+    (`tile_plan`) runs here on the device, inside K1's time."""
     if not packed.is_cuda:
         return slab_window_dots_plain(
-            packed, starts, sizes, queries, per_table, mask, shared_slab
+            packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale
         )
+    _check_scale(packed, packed_scale, shared_slab)
     _check_tile_slab(packed)
     win, aligned, row0, head, size = _cuda_args(
         packed, starts, sizes, queries, per_table, mask, shared_slab)
@@ -313,9 +343,10 @@ def slab_window_dots(
     qv = queries.float().contiguous()
     if qv.data_ptr() % 16:
         qv = qv.clone()
+    scale = None if packed_scale is None else packed_scale.contiguous()
     with torch.cuda.device(packed.device):
         plan = tile_plan(packed, row0, head, size, win)
-    tile_launch(packed, qv, plan, dots, mask)
+    tile_launch(packed, qv, plan, dots, mask, scale)
     slab_window_dots.launches += 1
     return dots, aligned
 
@@ -334,9 +365,9 @@ def slab_window_dots_rowwise(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's previous design, one block per window (`csrc/slabscore.cu`),
     kept so a run on the card can time it beside the tile-major kernel on
-    the same inputs.  Same function and arguments as `slab_window_dots`;
-    no serving or probe path calls it.  CPU tensors take the plain
-    version."""
+    the same inputs.  Same function and arguments as `slab_window_dots`
+    but for packed_scale, which it does not take; no serving or probe path
+    calls it.  CPU tensors take the plain version."""
     if not packed.is_cuda:
         return slab_window_dots_plain(
             packed, starts, sizes, queries, per_table, mask, shared_slab
@@ -370,7 +401,8 @@ def _dedup_topk_pairs(
     top_k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-dedup (score, id) pairs by id and re-select top_k: a stable
-    sort of the ids, scores gathered by the returned permutation."""
+    sort of the ids, scores gathered by the returned permutation; equal
+    scores keep the lower id first (`topk_desc`), as `lax.top_k` does."""
     raw_sorted, perm = torch.sort(ids, dim=1, stable=True)
     s_sorted = torch.gather(scores, 1, perm)
     dup = torch.zeros_like(raw_sorted, dtype=torch.bool)
@@ -379,7 +411,7 @@ def _dedup_topk_pairs(
         dup | (raw_sorted >= n_rows) | ~torch.isfinite(s_sorted),
         float("-inf"), s_sorted,
     )
-    s2, pos2 = torch.topk(s_sorted, top_k, dim=1)
+    s2, pos2 = topk_desc(s_sorted, top_k)
     ids_sorted = torch.clamp(raw_sorted, max=n_rows - 1)
     out_ids = torch.where(
         s2 > float("-inf"), torch.gather(ids_sorted, 1, pos2), -1
@@ -504,10 +536,13 @@ def packed_retrieve_pallas(
     strict: bool = False,
     stage1_width: int = 0,
     stage1_per_table: int = 0,
+    packed_scale=None,            # [L, n_pad] f32 (per-row int8 slabs)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused retrieval over the packed layout (cosine, unfiltered, scale-free
-    slabs): window offsets -> K1 dots -> dedup top-k.  The name is the JAX
+    """Fused retrieval over the packed layout (cosine, unfiltered):
+    window offsets -> K1 dots -> dedup top-k.  The name is the JAX
     function's; the dots come from the Hopper kernel on CUDA tensors.
+    packed_scale: the per-row int8 pack's scales, applied by K1 (scores
+    are then dequantized similarities); None for scale-free slabs.
 
     strict=False (production): maskless aligned-overfetch windows + the
     per-table stage 1.  strict=True: exact reference window semantics and
@@ -515,7 +550,8 @@ def packed_retrieve_pallas(
     s0, sizes = _window_offsets(bucket_starts, q_buckets, per_table)
     qv = queries.float()
     qv = qv / torch.clamp(torch.sqrt(torch.sum(qv * qv, dim=1, keepdim=True)), min=1e-30)
-    dots, a0 = slab_window_dots(packed, s0, sizes, qv, per_table, mask=strict)
+    dots, a0 = slab_window_dots(packed, s0, sizes, qv, per_table, mask=strict,
+                                packed_scale=packed_scale)
     return slab_topk(dots, a0, packed_rows, n_rows, top_k, exact=strict,
                      stage1_width=stage1_width, stage1_per_table=stage1_per_table)
 

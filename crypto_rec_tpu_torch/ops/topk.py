@@ -10,6 +10,8 @@ them.  `torch.topk` promises no order among equal values (on CUDA it
 differs from the CPU's), so the selection is a stable descending sort cut
 to k: ratings on a few coins tie often (identical users, users with one
 tweet), and the tie order decides which neighbours and coins are picked.
+`topk_asc` is the ascending twin (the smallest values: distances, bit
+margins), in place of JAX's `lax.top_k` of the negated values.
 Values order as that sort orders them on both devices: NaN first, +0.0
 and -0.0 equal (`lax.top_k` on the CPU puts +0.0 first).  The sort costs
 about what `torch.topk` does where the row is short or k a large share of
@@ -37,6 +39,14 @@ def topk_desc(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     """Descending top-k along the last axis -> (values, indices), equal
     values lowest index first."""
     vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def topk_asc(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ascending top-k (the k smallest) along the last axis -> (values,
+    indices), equal values lowest index first: the order of
+    `lax.top_k(-values, k)` with its values negated back."""
+    vals, idx = torch.sort(values, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 
 

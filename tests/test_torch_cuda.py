@@ -768,3 +768,82 @@ def test_sharded_recommend_scored_on_the_card_matches_cpu(cuda):
     assert torch.equal(got[2].cpu(), want[2])
     for k in ("scanned_total", "window_dropped_total"):
         assert int(got[5][k]) == int(want[5][k])
+
+
+def _row_scales(g, T, n_pad, n_real, device):
+    """[T, n_pad] positive f32 per-row scales, 1 on the pad rows."""
+    s = (0.5 + 1.5 * torch.rand(T, n_pad, generator=g, device=device)) / 127.0
+    s[:, n_real:] = 1.0
+    return s
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask", [False, True])
+def test_slab_kernel_per_row_scale_matches_plain(cuda, dtype, d, mask):
+    """K1 with packed_scale: every stored lane times its slab row's scale,
+    masked lanes -inf, within K1's tolerance of the plain version (which
+    multiplies the gathered scale windows), one launch; windows sharing
+    tiles heavily and running into the slab's end."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    T, n_pad, q, per_table = 4, 8092, 300, 488
+    packed = _slabs(g, (T, n_pad, d), dtype, cuda)
+    if dtype != torch.int8:
+        packed = torch.nn.functional.normalize(packed.float(), dim=-1).to(dtype)
+    scale = _row_scales(g, T, n_pad, n_pad - 200, cuda)
+    starts = torch.cat([
+        torch.randint(0, 4, (q // 2, T), generator=g, device=cuda, dtype=torch.int32) * 900,
+        torch.randint(n_pad - 700, n_pad, (q - q // 2, T), generator=g, device=cuda,
+                      dtype=torch.int32)])
+    sizes = torch.randint(0, 600, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, d, generator=g, device=cuda), dim=-1)
+    args = (packed, starts, sizes, qv, per_table)
+    before = slab_window_dots.launches
+    got, a_got = slab_window_dots(*args, mask=mask, packed_scale=scale)
+    want, a_want = slab_window_dots_plain(*args, mask=mask, packed_scale=scale)
+    torch.cuda.synchronize()
+    assert slab_window_dots.launches == before + 1
+    assert torch.equal(a_got, a_want)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    # K1's tolerance on the unscaled dots, times the largest scale
+    atol = (1e-4 if dtype == torch.int8 else 1e-6) * float(scale.max())
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=atol)
+    unscaled, _ = slab_window_dots(*args, mask=mask)
+    assert not torch.allclose(got[fin], unscaled[fin])
+
+
+def test_per_row_retrieval_on_the_card(cuda):
+    """packed_retrieve_pallas with a per-row int8 pack: the card (K1 with the
+    scale, counted) against the same call on CPU tensors (the plain
+    version), strict and production; scale checks raise on the card."""
+    from _torch_parity import assert_topk_match
+    from crypto_rec_tpu_torch.models.lsh.index import build_index, pack_index, query_hashes
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import packed_retrieve_pallas
+
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(20000, 128, generator=g)
+    qs = x[:256] + 0.05 * torch.randn(256, 128, generator=g)
+    idx = pack_index(build_index(torch.Generator().manual_seed(2), x, "cosine", 8, 4), x,
+                     dtype=torch.int8, scale_mode="row")
+    assert idx.packed_scale is not None
+    qb, _ = query_hashes(idx, qs)
+    cpu_args = (idx.packed, idx.packed_rows, idx.bucket_starts, idx.n_rows, qs, qb, 10, 200)
+    card_args = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in cpu_args)
+    for strict in (True, False):
+        want = packed_retrieve_pallas(*cpu_args, strict=strict, packed_scale=idx.packed_scale)
+        before = slab_window_dots.launches
+        got = packed_retrieve_pallas(*card_args, strict=strict,
+                                     packed_scale=idx.packed_scale.to(cuda))
+        torch.cuda.synchronize()
+        assert slab_window_dots.launches == before + 1
+        assert_topk_match(want[0], want[1], got[0].cpu(), got[1].cpu(), rtol=1e-5, atol=1e-5)
+    packed = card_args[0]
+    starts = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    q4 = torch.zeros(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="shared_slab"):
+        slab_window_dots(packed[:1].contiguous(), starts, starts, q4, 200, shared_slab=True,
+                         packed_scale=idx.packed_scale[:1].to(cuda))
+    with pytest.raises(ValueError, match="packed_scale"):
+        slab_window_dots(packed, torch.zeros(4, 4, dtype=torch.int32, device=cuda), None,
+                         q4, 200, mask=False, packed_scale=idx.packed_scale)   # on the CPU

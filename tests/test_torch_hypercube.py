@@ -13,6 +13,8 @@ tests/test_torch_pstable.py: -sqrt(|q|^2 - 2 rank) cancels two terms of
 size |q|^2), with atol 1e-5 |q|^2_max.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -110,19 +112,15 @@ def test_cube_candidate_mask_and_ids_match_jax(data, metric):
         assert set(a.tolist()) == set(b.tolist())
 
 
-@pytest.mark.parametrize("probes", [16, 24, 64])
-@pytest.mark.parametrize("metric", list(W))
-def test_directed_probe_vertices_match_jax(data, metric, probes):
-    jc, pc = data["cubes"][metric]
-    want = np.asarray(jax_cube.directed_probe_vertices(jc, jnp.asarray(data["qs"]), probes))
-    got = port_cube.directed_probe_vertices(pc, data["QS"], probes).numpy()
+def _assert_probes_match(jc, qs, want, got, probes):
+    """Home first; probe scores (summed margins of the flipped bits) decide
+    the order, and slots whose score is within 1e-5 relative of a
+    neighbour's may swap (the subset sums' f32 order); same sets."""
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got[:, 0], want[:, 0])            # home first
-    # probe scores (summed margins of the flipped bits) decide the order;
-    # slots whose score is within 1e-5 relative of a neighbour's may swap
-    margins = np.asarray(jax_cube._bit_margins(jc, jnp.asarray(data["qs"])))
+    margins = np.asarray(jax_cube._bit_margins(jc, jnp.asarray(qs)))
     bitpos = KB - 1 - np.arange(KB)
-    for qi in range(Q):
+    for qi in range(len(qs)):
         flips = (want[qi, 0] ^ want[qi])[:, None] >> bitpos[None, :] & 1
         score = flips @ margins[qi]
         tied = np.zeros(probes, bool)
@@ -131,6 +129,55 @@ def test_directed_probe_vertices_match_jax(data, metric, probes):
         tied[:-1] |= close
         np.testing.assert_array_equal(got[qi][~tied], want[qi][~tied])
         assert set(got[qi].tolist()) == set(want[qi].tolist()), f"query {qi}"
+
+
+@pytest.mark.parametrize("probes", [16, 24, 64])
+@pytest.mark.parametrize("metric", list(W))
+def test_directed_probe_vertices_match_jax(data, metric, probes):
+    jc, pc = data["cubes"][metric]
+    want = np.asarray(jax_cube.directed_probe_vertices(jc, jnp.asarray(data["qs"]), probes))
+    got = port_cube.directed_probe_vertices(pc, data["QS"], probes).numpy()
+    _assert_probes_match(jc, data["qs"], want, got, probes)
+
+
+@pytest.mark.parametrize("m_bits", [3, 5, None])
+@pytest.mark.parametrize("metric", list(W))
+def test_directed_probe_vertices_m_bits_match_jax(data, metric, m_bits):
+    """m_bits picks how many soft bits are enumerated (min(m_bits, k, 13);
+    None: 2 beyond ceil(log2(probes))); at m_bits 3 the 8 subsets run out
+    before 12 probes and the rest are the home vertex."""
+    jc, pc = data["cubes"][metric]
+    probes = 12
+    want = np.asarray(jax_cube.directed_probe_vertices(jc, jnp.asarray(data["qs"]), probes,
+                                                       m_bits=m_bits))
+    got = port_cube.directed_probe_vertices(pc, data["QS"], probes, m_bits=m_bits).numpy()
+    _assert_probes_match(jc, data["qs"], want, got, probes)
+    if m_bits == 3:
+        np.testing.assert_array_equal(got[:, 8:], np.repeat(got[:, :1], 4, axis=1))
+    distinct = max(len(set(r.tolist())) for r in got)
+    assert distinct == {3: 8, 5: 12, None: 12}[m_bits]
+
+
+def test_directed_probe_vertices_ties_go_to_the_lower_index():
+    """Equal bit margins and equal subset scores (the two `torch.topk`
+    sites): integer hyperplanes and queries make the margins exact, and the
+    probes equal JAX's exactly, order included, at m_bits 3, 5 and None."""
+    rng = np.random.default_rng(13)
+    d = 16
+    x = rng.integers(-2, 3, size=(600, d)).astype(np.float32)
+    jc = jax_cube.build_hypercube(jax.random.PRNGKey(4), jnp.asarray(x), "cosine", KB, 1.0)
+    proj = rng.integers(-1, 2, size=(d, KB)).astype(np.float32)
+    jc = dataclasses.replace(jc, family=dataclasses.replace(jc.family, proj=jnp.asarray(proj)))
+    pc = port_cube.hypercube_from_numpy(*cube_handover(jc), CPU)
+    qs = rng.integers(-2, 3, size=(64, d)).astype(np.float32)
+    margins = np.abs(qs @ proj)
+    assert (np.sort(margins, 1)[:, 1:] == np.sort(margins, 1)[:, :-1]).any(1).mean() > 0.9
+    for m_bits in (3, 5, None):
+        want = np.asarray(jax_cube.directed_probe_vertices(jc, jnp.asarray(qs), 16,
+                                                           m_bits=m_bits))
+        got = port_cube.directed_probe_vertices(pc, torch.from_numpy(qs), 16,
+                                                m_bits=m_bits).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"m_bits={m_bits}")
 
 
 def test_directed_probe_vertices_tiny_k_pads_with_home(data):

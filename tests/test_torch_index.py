@@ -203,3 +203,48 @@ def test_euclidean_checkpoint_port_to_jax(euclid, tmp_path):
     got = port_index.retrieve_topk(pp, torch.from_numpy(qs), torch.from_numpy(x),
                                    top_k=10, per_table=200)
     assert_topk_match(*want, *got, rtol=1e-5, atol=1e-5)
+
+
+def test_hash_bits_match_jax(built):
+    """CosineLsh.hash_bits: [n, L, k] int32 sign bits, equal to JAX's
+    exactly wherever the projection is not within 1e-4 |x||r| of 0 (its
+    sign there is f32 summation order; the f64 margin finds those), and
+    packed MSB-first they are the port's bucket ids."""
+    x, jidx, pidx = built
+    want = np.asarray(jidx.family.hash_bits(jnp.asarray(x)))
+    got = pidx.family.hash_bits(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (N, L, K) == want.shape
+    proj = np.asarray(jidx.family.proj).astype(np.float64)
+    exact = x.astype(np.float64) @ proj
+    lim = 1e-4 * np.linalg.norm(x, axis=1)[:, None] * np.linalg.norm(proj, axis=0)[None, :]
+    near0 = (np.abs(exact) <= lim).reshape(N, L, K)
+    assert near0.mean() < 1e-3
+    np.testing.assert_array_equal(got.numpy()[~near0], want[~near0])
+    np.testing.assert_array_equal(got.numpy()[~near0], (exact >= 0).reshape(N, L, K)[~near0])
+    weights = 1 << torch.arange(K - 1, -1, -1, dtype=torch.int32)
+    np.testing.assert_array_equal((got * weights).sum(-1).numpy(),
+                                  pidx.family.bucket_ids(torch.from_numpy(x)).numpy())
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_rerank_exact_ties_go_to_the_earlier_candidate(metric):
+    """Duplicate corpus rows in a candidate list (rerank_exact's `torch.topk`
+    site): equal exact scores keep the candidate list's order, as JAX's
+    `lax.top_k` does.  Integer rows and queries of norm 2 (four entries of
+    +-1) make every product exact, so duplicates' scores are bit-equal."""
+    rng = np.random.default_rng(9)
+    base = rng.integers(-2, 3, size=(12, 16)).astype(np.float32)
+    base[base.sum(1) == 0, 0] = 1.0
+    corpus = base[rng.integers(0, 12, size=300)]
+    qs = np.zeros((20, 16), np.float32)
+    for row in qs:
+        row[rng.permutation(16)[:4]] = rng.choice([-1.0, 1.0], size=4)
+    ids = np.stack([rng.permutation(300)[:40] for _ in range(20)]).astype(np.int32)
+    ids[:, -3:] = -1                                                  # pads
+    want = jax_index.rerank_exact(jnp.asarray(corpus), metric, jnp.asarray(qs),
+                                  jnp.asarray(ids), 8)
+    got = port_index.rerank_exact(torch.from_numpy(corpus), metric, torch.from_numpy(qs),
+                                  torch.from_numpy(ids), 8)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    assert int((got[0][:, 7] == got[0][:, 8 - 2]).sum()) >= 10       # cuts on ties

@@ -107,3 +107,18 @@ def test_user_matrices_match_jax(dataset):
     for m in (None, mask):
         _assert_matrix(users.build_cluster_user_matrix(got, cluster, 6, m),
                        jax_users.build_cluster_user_matrix(want, cluster, 6, m))
+
+
+def test_user_matrix_select_matches_jax(dataset):
+    """UserMatrix.select: the rows at an index array, in its order (repeats
+    and a reversed run included): ratings, known, mean and ids exactly."""
+    got, want = _batches(dataset)
+    um, jum = users.build_user_matrix(got), jax_users.build_user_matrix(want)
+    idx = np.concatenate([np.arange(um.n_users)[::-3], [0, 0, um.n_users - 1]])
+    sub, jsub = um.select(idx), jum.select(idx)
+    assert isinstance(sub, users.UserMatrix) and sub.n_users == len(idx)
+    for f in ("ratings", "known", "mean"):
+        np.testing.assert_array_equal(getattr(sub, f), getattr(jsub, f), err_msg=f)
+        np.testing.assert_array_equal(getattr(sub, f), getattr(um, f)[idx], err_msg=f)
+    assert sub.ids == jsub.ids == [um.ids[i] for i in idx]
+    assert um.select(np.array([], np.int64)).n_users == 0

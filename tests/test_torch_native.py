@@ -80,11 +80,30 @@ def test_library_lives_in_build_and_a_failed_build_raises(tmp_path, monkeypatch)
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(native, "SRC", bad)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    native.load_library.cache_clear()
-    try:
-        with pytest.raises(RuntimeError, match="g\\+\\+ ingest.cpp failed"):
-            native.load_library()
-    finally:
-        native.load_library.cache_clear()
+    monkeypatch.setattr(native, "_lib", None)      # the loaded library is forgotten
+    with pytest.raises(RuntimeError, match="g\\+\\+ ingest.cpp failed"):
+        native.load_library()
     assert not os.listdir(tmp_path / "build") or all(
         not n.endswith(".so") for n in os.listdir(tmp_path / "build"))
+
+
+def test_native_available_and_rebuild(tmp_path, monkeypatch):
+    """native_available() is True where the library builds (as the JAX
+    package's is here); load_library(rebuild=True) compiles it again even
+    though it is built and loaded; where g++ fails native_available()
+    returns False instead of raising."""
+    from crypto_rec_tpu.io.native import native_available as jax_native_available
+
+    assert native.native_available() is True is jax_native_available()
+    path = native.library_path()
+    native.load_library()
+    before = os.stat(path).st_ino
+    lib = native.load_library(rebuild=True)
+    assert os.stat(path).st_ino != before              # a new file was written
+    assert native.load_library() is lib
+    bad = tmp_path / "ingest.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SRC", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.native_available() is False

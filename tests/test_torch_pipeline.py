@@ -167,6 +167,24 @@ def test_phase_timer_accumulates():
     assert set(t.phases) == {"a"} and t.ms("a") >= 0 and t.ms("missing") == 0
 
 
+def test_phase_timer_qps_and_trace_match_jax(tmp_path):
+    """qps: queries over the phase's accumulated seconds, inf before it ran
+    (as the JAX package's PhaseTimer.qps); trace_dir writes a torch.profiler
+    Chrome trace of the phase, holding the phase's span."""
+    from crypto_rec_tpu.utils.timing import PhaseTimer as JaxPhaseTimer
+
+    t, jt = PhaseTimer(torch.device("cpu")), JaxPhaseTimer()
+    t.phases["a"] = jt.phases["a"] = 0.25
+    assert t.qps("a", 1000) == jt.qps("a", 1000) == 4000.0
+    assert t.qps("missing", 10) == jt.qps("missing", 10) == float("inf")
+    with t.phase("traced", trace_dir=str(tmp_path / "tr")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    trace = tmp_path / "tr" / "traced.trace.json"
+    assert trace.exists() and t.phases["traced"] > 0
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name") == "traced" for e in events)
+
+
 def test_p_header_above_the_virtual_user_count(tmp_path, capsys):
     """P = 20 neighbours asked of 10 virtual users (phase B): the port keeps
     every candidate, as the reference does; the JAX package's lax.top_k

@@ -152,3 +152,100 @@ def test_window_offsets_wrap_like_int32():
     np.testing.assert_array_equal(got_s0.numpy(), np.asarray(s0))
     np.testing.assert_array_equal(got_sizes.numpy(),
                                   np.asarray(jnp.minimum(jend - s0, per_table)))
+
+
+# ---- K1 with the per-row int8 scale (pack_index scale_mode="row") ----
+
+@pytest.fixture(scope="module")
+def row_pack(setup):
+    """The JAX index of `setup`, packed int8 with one scale per row."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    jidx = jax_index.build_index(
+        jax.random.PRNGKey(1), jnp.asarray(x), "cosine", k=5, L=L,
+        lsh_bucket_div=4, euclidean_h_w=1.0,
+    )
+    p = jax_index.pack_index(jidx, jnp.asarray(x), dtype=jnp.int8, pad=1024,
+                             scale_mode="row")
+    assert p.packed_scale is not None and p.packed_scale.shape == p.packed.shape[:2]
+    return p
+
+
+@pytest.mark.parametrize("mask", [True, False])
+def test_slab_window_dots_per_row_scale_matches_jax(setup, row_pack, mask):
+    """Every lane times its slab row's scale (JAX slabscore.py:381-395),
+    masked lanes -inf, at the file's int8 tolerance."""
+    p = row_pack
+    want = jax_slab.slab_window_dots(
+        p.packed, p.packed_scale, setup["start"], setup["sizes"],
+        jnp.asarray(setup["qv"]), per_table=PT, interpret=True, mask=mask,
+    )
+    args = (_t(p.packed), _t(setup["start"]), _t(setup["sizes"]),
+            torch.from_numpy(setup["qv"]), PT)
+    got = slabscore.slab_window_dots_plain(*args, mask=mask,
+                                           packed_scale=_t(p.packed_scale))
+    _check_dots(want, got, "int8")
+    # dequantized: similarities of unit rows, not raw int8 dots
+    fin = torch.isfinite(got[0])
+    assert float(got[0][fin].abs().max()) < 1.01
+    routed = slabscore.slab_window_dots(*args, mask=mask, packed_scale=_t(p.packed_scale))
+    assert torch.equal(routed[0], got[0]) and torch.equal(routed[1], got[1])
+    # a scale of ones is the scale-free call
+    ones = torch.ones(p.packed_scale.shape, dtype=torch.float32)
+    plain = slabscore.slab_window_dots_plain(*args, mask=mask)
+    assert torch.equal(slabscore.slab_window_dots_plain(*args, mask=mask,
+                                                        packed_scale=ones)[0], plain[0])
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_packed_retrieve_pallas_per_row_scale_matches_jax(setup, row_pack, strict):
+    """The whole per-row int8 retrieval through K1 with packed_scale: ids
+    equal JAX's away from near-ties, scores within rtol 1e-5."""
+    p = row_pack
+    qs = setup["qv"] * 3.0
+    want = jax_slab.packed_retrieve_pallas(
+        p.packed, p.packed_rows, p.packed_scale, p.bucket_starts, p.n_rows,
+        jnp.asarray(qs), setup["qb"], 10, PT, interpret=True, strict=strict,
+    )
+    got = slabscore.packed_retrieve_pallas(
+        _t(p.packed), _t(p.packed_rows), _t(p.bucket_starts), p.n_rows,
+        torch.from_numpy(qs), _t(setup["qb"]), 10, PT, strict=strict,
+        packed_scale=_t(p.packed_scale),
+    )
+    assert_topk_match(*want, *got, rtol=1e-5, atol=1e-6)
+    assert float(to_np(got[0])[to_np(got[1]) >= 0].max()) <= 1.01
+
+
+def test_per_row_scale_checks(setup, row_pack):
+    """shared_slab with a scale raises (JAX slabscore.py:293), as does a
+    scale of the wrong shape or dtype."""
+    p = row_pack
+    scale = _t(p.packed_scale)
+    qv = torch.from_numpy(setup["qv"])
+    starts = torch.zeros(Q, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared_slab"):
+        slabscore.slab_window_dots_plain(_t(p.packed)[:1], starts, starts, qv, PT,
+                                         shared_slab=True, packed_scale=scale[:1])
+    with pytest.raises(ValueError, match="shared_slab"):
+        slabscore.slab_window_dots(_t(p.packed)[:1], starts, starts, qv, PT,
+                                   shared_slab=True, packed_scale=scale[:1])
+    args = (_t(p.packed), _t(setup["start"]), _t(setup["sizes"]), qv, PT)
+    for bad in (scale[:, :-1], scale.double()):
+        with pytest.raises(ValueError, match="packed_scale"):
+            slabscore.slab_window_dots(*args, packed_scale=bad)
+
+
+def test_dedup_topk_ties_go_to_the_lower_id():
+    """Equal candidate scores at the top-k cut (the epilogue's `torch.topk`
+    site): after the id sort-dedup the port keeps the lower ids first, as
+    JAX's `lax.top_k` over the id-sorted scores does."""
+    rng = np.random.default_rng(23)
+    n, m, k = 500, 64, 10
+    ids = rng.integers(0, n + 20, size=(16, m)).astype(np.int32)       # dups, pads
+    scores = (ids % 4).astype(np.float32)                              # ties by row
+    scores[ids >= n] = -np.inf
+    want = jax_slab._dedup_topk_pairs(jnp.asarray(scores), jnp.asarray(ids), n, k)
+    got = slabscore._dedup_topk_pairs(torch.from_numpy(scores), torch.from_numpy(ids),
+                                      n, k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))

@@ -27,9 +27,14 @@ modules that import its topk_desc): phase 5's CF scoring
 and the streamed merge of four chunks' top-10 at q = 16,384 (CUDA
 events); and `main -validate` on chip_smoke phase 13's dataset, phase ms
 per selection (PhaseTimer, median of two runs after a warm run), where
-the stable and fix runs must write the same file.
+the stable and fix runs must write the same file.  Then, at the shape of
+each site that once called `torch.topk` and now sorts for lowest-index-
+first ties (`SITES`: the exact oracle and its streamed merge, the directed
+probes' two selections, the dedup epilogue, rerank_exact), `torch.topk`
+against the stable sort (`topk_desc`, or `topk_asc` where the site takes
+the smallest values) in alternating rounds.
 
-    python3 tools/chip_probes/topk_select.py [--no-program]
+    python3 tools/chip_probes/topk_select.py [--no-program] [--sites-only]
 
 Needs a CUDA device.  Prints the card first and one JSON line last (also
 written to chiprun_out/topk_select.json).
@@ -69,6 +74,30 @@ SHAPES = [
     ("IVF probe selection, 1,953 centroids (phase 20)", 256, 1953, 16),
     ("IVF scores, nprobe 16 x 1,024 rows (phase 20)", 256, 16384, 10),
     ("blocked core stage 1 (phases 17, 18)", 256, 4096, 80),
+]
+
+
+# (site, rows, axis length m, k, "desc" or "asc"): the repaired sites'
+# shapes at chip_smoke's points
+SITES = [
+    ("ops/oracle exact_nearest: phase 5's oracle, 256 queries x 2M rows",
+     256, 2_000_000, 10, "asc"),
+    ("ops/oracle exact_nearest: a streamed slice of 2^18 rows, 64 queries",
+     64, 1 << 18, 10, "asc"),
+    ("ops/oracle exact_nearest: a streamed slice of 2^20 rows, 64 queries",
+     64, 1 << 20, 10, "asc"),
+    ("ops/oracle exact_nearest_streamed merge, 1,024 queries", 1024, 20, 10, "asc"),
+    ("hypercube directed_probe_vertices: bit margins, k = 13, m = 8", 32768, 13, 8, "asc"),
+    ("hypercube directed_probe_vertices: subset scores, 2^6 for 16 probes",
+     32768, 64, 16, "asc"),
+    ("hypercube directed_probe_vertices: subset scores, 2^8 for 64 probes",
+     32768, 256, 64, "asc"),
+    ("slabscore _dedup_topk_pairs: CF point, 8 x 12 survivors, top-20", 8192, 96, 20, "desc"),
+    ("slabscore _dedup_topk_pairs: CF point at q = 32,768", 32768, 96, 20, "desc"),
+    ("slabscore _dedup_topk_pairs: euclidean cube, 64 probes x 10", 32768, 640, 10, "desc"),
+    ("index candidate_ids_scored stage 2 (_dedup_topk_pairs): budget 256", 8192, 256, 256,
+     "desc"),
+    ("index rerank_exact: 40 candidates, top-10", 8192, 40, 10, "desc"),
 ]
 
 
@@ -153,17 +182,21 @@ def med(xs):
     return statistics.median(xs)
 
 
+def values_of(g, kind, rows, m):
+    """[rows, m] values on the card: "grid", 2,001 levels, so wide rows hold
+    exact ties everywhere; "uniform" floats, where ties are rare."""
+    if kind == "grid":
+        return torch.randint(-1000, 1001, (rows, m), generator=g, device=DEV).float() / 1000
+    return torch.rand(rows, m, generator=g, device=DEV)
+
+
 def micro(g):
-    """Each selection at each caller's shape on two kinds of values: a
-    grid of 2,001 levels, so wide rows hold exact ties everywhere, and
-    uniform floats, where ties are rare."""
+    """Each selection at each caller's shape on both kinds of
+    `values_of`."""
     out = []
     for name, rows, m, k in SHAPES:
         for kind in ("grid", "uniform"):
-            if kind == "grid":
-                v = torch.randint(-1000, 1001, (rows, m), generator=g, device=DEV).float() / 1000
-            else:
-                v = torch.rand(rows, m, generator=g, device=DEV)
+            v = values_of(g, kind, rows, m)
             idx = {s: fn(v, k)[1] for s, fn in SELECTIONS.items()}
             same = all(torch.equal(idx["stable"], idx[s]) for s in ("keys", "tail", "fix"))
             t = timed_alternating({s: (lambda fn=fn: fn(v, k)) for s, fn in SELECTIONS.items()},
@@ -178,6 +211,33 @@ def micro(g):
             if not same:
                 raise AssertionError(f"{name}: the tie-exact selections disagree")
             del v, idx
+    return out
+
+
+def sites(g):
+    """torch.topk against the stable sort at each repaired site's shape,
+    on grid and uniform values (as `micro`); the sort's indices must be
+    the lowest-index-first selection's."""
+    out = []
+    for name, rows, m, k, order in SITES:
+        stable = topk.topk_desc if order == "desc" else topk.topk_asc
+        fns = dict(topk=lambda v, k=k: torch.topk(v, k, dim=-1, largest=order == "desc"),
+                   stable=lambda v, k=k: stable(v, k))
+        for kind in ("grid", "uniform"):
+            v = values_of(g, kind, rows, m)
+            want = sel_keys(v if order == "desc" else -v, k)[1]
+            if not torch.equal(fns["stable"](v)[1], want):
+                raise AssertionError(f"{name}: the stable sort is not lowest index first")
+            t = timed_alternating({s: (lambda fn=fn: fn(v)) for s, fn in fns.items()},
+                                  DEV, ROUNDS)
+            row = dict(site=name, values=kind, shape=[rows, m], k=k, order=order,
+                       topk_ms=med(t["topk"]), stable_ms=med(t["stable"]))
+            out.append(row)
+            print(f"site {name} [{rows}, {m}] k = {k} ({order}), {kind}: torch.topk "
+                  f"{row['topk_ms']:.3f} ms, stable sort {row['stable_ms']:.3f} ms "
+                  f"({row['stable_ms'] / row['topk_ms']:.2f}x)", flush=True)
+            del v, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -269,6 +329,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-program", action="store_true",
                     help="skip the program runs on phase 13's dataset")
+    ap.add_argument("--sites-only", action="store_true",
+                    help="time only the repaired sites (SITES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("topk_select: needs a CUDA device", file=sys.stderr)
@@ -276,10 +338,13 @@ def main() -> int:
     smi = card()
     print(smi, flush=True)
     g = torch.Generator(device=DEV).manual_seed(0)
-    res = dict(card=smi, rounds=ROUNDS, micro=micro(g), callers=callers(g))
+    res = dict(card=smi, rounds=ROUNDS, sites=sites(g))
     torch.cuda.empty_cache()
-    if not args.no_program:
-        res["program"] = program()
+    if not args.sites_only:
+        res.update(micro=micro(g), callers=callers(g))
+        torch.cuda.empty_cache()
+        if not args.no_program:
+            res["program"] = program()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "topk_select.json"), "w") as f:
         json.dump(res, f, indent=1)
