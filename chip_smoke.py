@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It drives the port's serving paths at `bench.py`'s operating points on one
 2M x 128 planted corpus on the card, the recommender program and its
 10-fold CV, the rest of the single-chip package and the sharded
-engines, in twenty-three phases; each phase raises on failure:
+engines, in twenty-four phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -114,7 +114,15 @@ engines, in twenty-three phases; each phase raises on failure:
  23. the top-k sites repaired to tie order (exact_nearest, its streamed
      merge, directed_probe_vertices, rerank_exact, the epilogue's dedup
      top-k), each on inputs full of exact ties on the card and on the CPU:
-     0 differing sets and orders.
+     0 differing sets and orders;
+ 24. S1 (`window_topk`, the stage-1 selection of every K1 path) at every
+     (rows, m, k) it was launched at in phases 5-22, on tied rows
+     (integers, +-0, +-inf, NaN, -inf runs): equal to topk_desc bit for
+     bit on the card and, on the first S1_CPU_ROWS rows, to topk_desc on
+     the CPU (0 differing sets and orders); timed beside torch.topk (the
+     library yardstick) and topk_desc with its byte bound.  Phases 5, 9
+     and 10 also hold S1 against topk_desc on the dots their paths
+     selected from, and time it there.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -133,7 +141,8 @@ wholes; phase 12: the six probes; phase 13: the program's run; phase 14:
 ten_fold_mae; phase 15: one candidate_ids_scored call; phases 17, 19
 and 21: the fused program, the streamed pass, each CLI run; phase 22:
 build, pack, retrieve and scored CF at each mp) and read just after it;
-each kernel of the path must show > 0.
+each kernel of the path must show > 0, and every counted run that
+launches K1 must show S1 too (`check_s1`).
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, bound and share of it, every
@@ -414,9 +423,10 @@ def _counters():
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
         i8_dots, load_floor, rounded_query_dots,
     )
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 
-    return (signproj_bucket_ids, slab_window_dots, binned_dots, slab_window_dots_int4,
-            load_floor, rounded_query_dots, i8_dots, blk_window_dots)
+    return (signproj_bucket_ids, slab_window_dots, window_topk, binned_dots,
+            slab_window_dots_int4, load_floor, rounded_query_dots, i8_dots, blk_window_dots)
 
 
 def zero_counts():
@@ -546,6 +556,8 @@ def phase9(corpus, queries, true_idx):
     log(f"phase 9 euclidean LSH launches (build + pack + retrieve, q={CQ}): {launches}")
     if not launches["slab_window_dots"]:
         raise AssertionError("euclidean LSH: K1 did not run")
+    check_s1("euclidean LSH", launches)
+    s1_check_kept(9)
     check_topk(scores, ids, CQ, N, "euclidean LSH")
     # the reranked scores are the returned rows' true negated distances
     dist = (qs[:256, None, :] - corpus[ids[:256].clamp(min=0).long()]).norm(dim=2)
@@ -623,6 +635,8 @@ def cube_leg(corpus, queries, true_idx, name, metric, cubes, probes, per_probe, 
         raise AssertionError(f"{name}: K1 did not run")
     if metric == "cosine" and not launches["signproj_bucket_ids"]:
         raise AssertionError(f"{name}: K2 did not run")
+    check_s1(name, launches)
+    s1_check_kept(10)
     check_topk(scores, ids, CQ, N, name)
     recall = recall_at_k(ids, true_idx[:CQ])
     del scores, ids
@@ -677,6 +691,7 @@ def phase11(eidx, corpus, q_host, true_host):
     log(f"phase 11 launches: {launches}")
     if not launches["slab_window_dots"]:
         raise AssertionError("serving: K1 did not run")
+    check_s1("serving --pack --augment", launches)
     return dict(launches=launches, requests=out)
 
 
@@ -1217,6 +1232,7 @@ def phase14():
         f"tolerance {CV_MAE_TOL}); mean predictor {base:.4f}; launches {launches}")
     if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
         raise AssertionError(f"10-fold CV: a kernel did not run: {launches}")
+    check_s1("10-fold CV", launches)
     if abs(mae - CV_JAX_MAE) > CV_MAE_TOL:
         raise AssertionError(f"10-fold CV MAE {mae:.4f} is not within {CV_MAE_TOL} "
                              f"of {CV_JAX_MAE}")
@@ -1249,6 +1265,7 @@ def phase15(pidx, queries, true_idx):
     launches = read_counts()
     if not launches["slab_window_dots"]:
         raise AssertionError("candidate_ids_scored: K1 did not run")
+    check_s1("candidate_ids_scored", launches)
     if tuple(ids.shape) != (SQ, SBUDGET) or not bool(((ids >= -1) & (ids < N)).all()):
         raise AssertionError("candidate_ids_scored: shape or ids out of range")
     s = torch.sort(ids, dim=1).values
@@ -1570,6 +1587,7 @@ def per_row_k1(pidx, qs, truth):
             f"top score {float(scores[:, 0].max()):.4f}; launches {launches}")
         if not launches["slab_window_dots"]:
             raise AssertionError(f"per-row packed_retrieve_pallas: K1 did not run: {launches}")
+        check_s1(f"per-row packed_retrieve_pallas ({mode})", launches)
         if recall < NK["floor"]:
             raise AssertionError(f"per-row packed_retrieve_pallas ({mode}): recall "
                                  f"{recall:.4f} < {NK['floor']}")
@@ -1758,6 +1776,7 @@ def phase19():
         f"(floor {ST['floor']}; scale cut 100M -> {n} rows); launches {launches}")
     if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
         raise AssertionError(f"streamed: a kernel did not run: {launches}")
+    check_s1("streamed", launches)
     if recall < ST["floor"]:
         raise AssertionError(f"streamed recall {recall:.4f} < {ST['floor']}")
     if peak >= 3 * chunk_bytes:
@@ -2021,6 +2040,165 @@ def phase23():
     return sites
 
 
+# S1 (window_topk), the stage-1 selection of every K1 path: the shapes it
+# launched at (R, m, k) -> the phase that first did, and the first dots of
+# phases 5, 9 and 10 at each shape, held against topk_desc after the run
+S1 = dict(phase=None, shapes={}, kept={}, checked=set(), dots=[], quiet=False)
+S1_CHUNK = 1 << 18         # rows a topk_desc comparison sorts at once
+S1_CPU_ROWS = 2048         # rows of each tied block compared with the CPU
+S1_TIME_ELEMS = 1 << 29    # values timed at most beside the sort (2 GiB of f32)
+
+
+def s1_record():
+    """Route S1's launches through a recorder of their shapes (and, in
+    phases 5, 9 and 10, of the first dots at each shape).  The wrapper
+    still counts each launch where it makes it."""
+    from crypto_rec_tpu_torch.ops.kernels import windowtopk
+
+    launch = windowtopk._select
+
+    def select(values, k):
+        key = (int(values.shape[0]), int(values.shape[1]), int(k))
+        if not S1["quiet"]:          # not the checks' and timings' own calls
+            S1["shapes"].setdefault(key, S1["phase"])
+            if S1["phase"] in (5, 9, 10) and key not in S1["checked"]:
+                S1["kept"].setdefault(key, values)
+        return launch(values, k)
+
+    windowtopk._select = select
+
+
+def check_s1(label, launches):
+    """Every stage-1 site selects K1's dots through S1: a counted run that
+    launched K1 must show S1 too."""
+    if launches["slab_window_dots"] and not launches["window_topk"]:
+        raise AssertionError(f"{label}: K1 ran but S1 (window_topk) did not: {launches}")
+
+
+def _s1_against_plain(v, k):
+    """S1 on all rows of v, against topk_desc S1_CHUNK rows at a time ->
+    (S1's output, equal bit for bit in values and indices)."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    got = window_topk(v, k)
+    same = True
+    for s in range(0, v.shape[0], S1_CHUNK):
+        want = topk_desc(v[s:s + S1_CHUNK], k)
+        same = same and torch.equal(got[1][s:s + S1_CHUNK], want[1]) and torch.equal(
+            got[0][s:s + S1_CHUNK].view(torch.int32), want[0].view(torch.int32))
+    torch.cuda.synchronize()
+    return got, same
+
+
+def s1_time(v, k):
+    """S1, torch.topk (the library yardstick) and topk_desc (the plain
+    version) on the same rows, alternating rounds, with S1's bound: on the
+    first S1_TIME_ELEMS // m rows (the sort of more would not fit beside
+    them), and then S1 alone on all the rows (all_rows_ms)."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    full = v
+    v = v[:max(1, S1_TIME_ELEMS // v.shape[1])]
+    t = rounds_ms({"ms": lambda: window_topk(v, k),
+                   "library_ms": lambda: torch.topk(v, k, dim=1),
+                   "plain_ms": lambda: topk_desc(v, k)})
+    R, m = v.shape
+    e = with_bound(dict(R=int(R), m=int(m), k=int(k), **t), bounds.s1_call(R, m, k))
+    e["all_rows"] = int(full.shape[0])
+    e["all_rows_ms"] = (e["ms"] if full.shape[0] == R
+                        else rounds_ms({"ms": lambda: window_topk(full, k)})["ms"])
+    return e
+
+
+def s1_line(phase, what, e):
+    log(f"phase {phase} S1 {what}, timed on [{e['R']}, {e['m']}] k = {e['k']}: {ROUNDS} "
+        f"alternating rounds: S1 {e['ms']:.3f} ms, torch.topk {e['library_ms']:.3f}, topk_desc "
+        f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.4f} ms (bytes): "
+        f"{100 * e['share_of_bound']:.1f}% of it; S1 on all {e['all_rows']} rows "
+        f"{e['all_rows_ms']:.3f} ms")
+
+
+def s1_check_kept(phase):
+    """S1 against topk_desc, bit for bit, on the dots the phase's path
+    selected from, then timed on them; the dots are let go."""
+    S1["quiet"] = True
+    for key in list(S1["kept"]):
+        v = S1["kept"].pop(key)
+        S1["checked"].add(key)
+        k = key[2]
+        got, same = _s1_against_plain(v, k)
+        if not same:
+            raise AssertionError(f"S1 differs from topk_desc on phase {phase}'s dots {key}")
+        e = s1_time(v, k)
+        e.update(phase=phase, input="the path's dots", shape=list(key), max_abs_err=0.0)
+        s1_line(phase, f"on the path's dots {list(key)} (equal to topk_desc bit for bit)", e)
+        S1["dots"].append(e)
+        del v, got
+    S1["quiet"] = False
+    torch.cuda.empty_cache()
+
+
+def _s1_tied_rows(R, m, seed):
+    """[R, m] f32 rows full of exact ties on the card, made S1_CHUNK rows at
+    a time: integer levels -4..4 with each 0 signed at random, +-inf, NaN
+    and -inf lanes; every fourth row in {-1, -0.0, 0.0}, every fourth row
+    95% -inf (a short masked window)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    v = torch.empty(R, m, device=DEV)
+    for s in range(0, R, S1_CHUNK):
+        c = min(S1_CHUNK, R - s)
+        b = torch.randint(-4, 5, (c, m), generator=g, device=DEV).float()
+        u = torch.randint(0, 1000, (c, m), generator=g, device=DEV)
+        r = (s + torch.arange(c, device=DEV))[:, None] % 4
+        b = torch.where(r == 3, -(u % 2).float(), b)
+        sign = torch.randint(0, 2, (c, m), generator=g, device=DEV).bool()
+        b = torch.where((b == 0) & sign, -0.0, b)
+        b = torch.where((r == 2) & (u < 950), float("-inf"), b)
+        b = torch.where(u < 2, float("nan"), b)
+        b = torch.where((u >= 2) & (u < 4), float("inf"), b)
+        v[s:s + c] = torch.where((u >= 4) & (u < 40), float("-inf"), b)
+    return v
+
+
+def phase24():
+    """S1 at every stage-1 shape the run launched it at, on tied rows
+    (integers, +-0, +-inf, NaN, -inf runs): equal to topk_desc bit for bit
+    on the card, and to topk_desc on the CPU on the first S1_CPU_ROWS rows
+    (0 differing sets and orders); then timed against torch.topk and
+    topk_desc at each shape."""
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    out = []
+    S1["quiet"] = True
+    for i, ((R, m, k), phase) in enumerate(sorted(S1["shapes"].items(),
+                                                  key=lambda kv: (kv[1], kv[0]))):
+        v = _s1_tied_rows(R, m, SEED + 240 + i)
+        got, same = _s1_against_plain(v, k)
+        c = min(R, S1_CPU_ROWS)
+        cpu = topk_desc(v[:c].cpu(), k)
+        sets, orders = _differ(got[1][:c], cpu[1])
+        vbits = torch.equal(got[0][:c].cpu().view(torch.int32), cpu[0].view(torch.int32))
+        if not same or sets or orders or not vbits:
+            raise AssertionError(f"S1 [{R}, {m}] k = {k}: equal to topk_desc on the card "
+                                 f"{same}; card against CPU: {sets} sets, {orders} orders "
+                                 f"differ, values equal {vbits}")
+        e = s1_time(v, k)
+        e.update(phase=phase, input="tied rows", shape=[R, m, k], max_abs_err=0.0,
+                 cpu_rows=c, sets_differ=sets, order_differs=orders)
+        log(f"phase 24 S1 [{R}, {m}] k = {k} (first launched in phase {phase}), tied rows: "
+            f"equal to topk_desc bit for bit on the card; {sets} of {c} sets differ card "
+            f"against CPU, {orders} orders")
+        s1_line(24, "tied rows", e)
+        out.append(e)
+        del v, got
+    S1["quiet"] = False
+    torch.cuda.empty_cache()
+    return out
+
+
 # phase 22: the sharded engines (parallel/) on phase 5's corpus and index
 # point, under a NCCL process group of world size 1; each mp shard is a
 # logical cell of the one process (500,000 rows a shard at mp = 4)
@@ -2110,6 +2288,7 @@ def phase22(corpus, queries, true_idx, q_known, q_mean, single_recall, single_qp
             launches = read_counts()
             if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
                 raise AssertionError(f"sharded mp={mp}: a kernel did not run: {launches}")
+            check_s1(f"sharded mp={mp}", launches)
             r_ret = recall_at_k(ids[:, :TOP_K], truth)
             r_sc = recall_at_k(out[4][:, :TOP_K], truth)
             if tuple(out[0].shape) != (q, D) or not bool(torch.isfinite(out[0]).all()):
@@ -2253,8 +2432,9 @@ def main() -> int:
     from crypto_rec_tpu_torch.ops.kernels import build
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        _window_offsets, slab_topk, slab_window_dots,
+        _window_offsets, slab_topk, slab_window_dots, window_len,
     )
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
     from crypto_rec_tpu_torch.ops.oracle import exact_nearest, recall_at_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2280,6 +2460,7 @@ def main() -> int:
     build.library()
     log(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
         f"({lib_path.relative_to(build.BUILD_DIR.parent.parent)})")
+    s1_record()
 
     # ---- 3. K2 against its plain version ----
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2323,7 +2504,8 @@ def main() -> int:
     nset = RatingSet(ratings=corpus, known=n_known, mean=n_mean)
     q_known = torch.rand(max(BATCHES), D, generator=kq, device=dev) < 0.6
     q_mean = (queries_all * q_known).sum(1) / q_known.sum(1).clamp(min=1)
-    counters = (signproj_bucket_ids, slab_window_dots)
+    counters = (signproj_bucket_ids, slab_window_dots, window_topk)
+    S1["phase"] = 5
 
     # The counted main-path run: build, pack, retrieve and score one batch.
     # Counts are zeroed just before it and read just after; every other
@@ -2419,9 +2601,11 @@ def main() -> int:
     if oracle_recall < 0.99:
         raise AssertionError("retrieval disagrees with the exact oracle")
     oracle_streamed = streamed_oracle_2m(corpus, queries_all)
+    s1_check_kept(5)
 
     # ---- 6. lsh_phase(engine="fused") ----
     # phases 6-7 are counted apart: they must reach the kernels too
+    S1["phase"] = 6
     for fn in counters:
         fn.launches = 0
     cfg = RecConfig(k=K, L=L, candidate_budget=PER_TABLE, pack_dtype="int8",
@@ -2444,6 +2628,8 @@ def main() -> int:
 
     # ---- 7. serving ----
     import numpy as np
+
+    S1["phase"] = 7
 
     q_host = queries_all.cpu().numpy()
     true_host = true_all.cpu().numpy()
@@ -2468,49 +2654,75 @@ def main() -> int:
     # ---- 8-11. euclidean LSH, cubes and MultiCubes on the same corpus ----
     del index, nset, n_known, qset, qset0, sims, nidx     # pidx: phase 15
     torch.cuda.empty_cache()
+    S1["phase"] = 8
     geoms, k2_l1 = phase8(corpus, queries_all)
     k1_geoms += geoms
+    S1["phase"] = 9
     eidx, euclid = phase9(corpus, queries_all, true_all)
     paths = {"euclidean LSH": euclid}
+    S1["phase"] = 10
     for i, leg in enumerate(CUBE_LEGS):
         paths[leg[0]] = cube_leg(corpus, queries_all, true_all, *leg, seed=SEED + 30 + i)
     k1_geoms += [r.pop("k1") for r in paths.values()]
+    S1["phase"] = 11
     serving = phase11(eidx, corpus, q_host, true_host)
     del eidx
     torch.cuda.empty_cache()
+    S1["phase"] = 12
     probe_checks, probes, probe_launches = phase12(corpus, queries_all, true_all, smi)
     torch.cuda.empty_cache()
 
     # ---- 13-15. the recommender program, 10-fold CV, scored candidate sets ----
     ds_dir = tempfile.TemporaryDirectory()
+    S1["phase"] = 13
     ds, program = phase13(ds_dir.name)
+    S1["phase"] = 14
     cv = phase14()
+    S1["phase"] = 15
     scored = phase15(pidx, queries_all, true_all)
 
     # ---- 16-21. card against CPU, and the rest of the single-chip package ----
+    S1["phase"] = 16
     card_vs_cpu = phase16()
+    S1["phase"] = 17
     program_fused = phase17(ds, program["summary"]["phase_ms"]["lsh_A"])
     index = dataclasses.replace(pidx, packed=None, packed_rows=None, packed_gscale=None)
     del pidx
     torch.cuda.empty_cache()
+    S1["phase"] = 18
     nonkernel = phase18(corpus, queries_all, true_all, index, q_host, true_host)
     del index
+    S1["phase"] = 19
     streamed = phase19()
+    S1["phase"] = 20
     ivf = phase20(corpus, queries_all, true_all)
+    S1["phase"] = 21
     clis = phase21(ds)
     ds_dir.cleanup()
 
     # ---- 22. the sharded engines, NCCL at world size 1 ----
+    S1["phase"] = 22
     sharded = phase22(corpus, queries_all, true_all, q_known, q_mean, e2e[BATCHES[0]]["recall"],
                       BATCHES[0] / e2e[BATCHES[0]]["retrieval_ms"] * 1e3)
     k1_sharded = sharded["mp4"].pop("k1")
 
     # ---- 23. the repaired top-k sites, card against CPU on tied inputs ----
+    S1["phase"] = 23
     ties = phase23()
     k1_per_row = nonkernel["k1_per_row"]["k1"]
 
+    # ---- 24. S1 at every stage-1 shape of the run, on tied rows ----
+    S1["phase"] = 24
+    s1_tied = phase24()
+
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
+
+    cf_shape = [BATCHES[0] * L, window_len(PER_TABLE), 12]
+    s1_main = next((e for e in S1["dots"] if e["shape"] == cf_shape), None)
+    if s1_main is None:
+        raise AssertionError(f"S1 was not checked at the CF point {cf_shape}: "
+                             f"{[e['shape'] for e in S1['dots']]}")
 
     row_keys = ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "share_of_bound")
@@ -2555,6 +2767,28 @@ def main() -> int:
              launches=cv["launches"]["slab_window_dots"], max_abs_err=cv["k1"]["max_abs_err"],
              **{key: cv["k1"][key] for key in row_keys}, card=CARD, geometries=[cv["k1"]],
              note="f32 slabs, d = 128 (f32 FFMA): the 10-fold CV leg, phase 14"),
+        dict(name="window_topk", route="cuda",
+             source="crypto_rec_tpu_torch/csrc/windowtopk.cu",
+             replaces="crypto_rec_tpu/ops/pallas/slabscore.py:486",
+             launches=launches["window_topk"],
+             max_abs_err=max(e["max_abs_err"] for e in S1["dots"] + s1_tied),
+             **{key: s1_main.get(key) for key in row_keys}, card=CARD,
+             geometries=S1["dots"] + s1_tied,
+             path_launches=dict(
+                 path_launches("window_topk"), phases_6_7=launches67["window_topk"],
+                 serving_euclidean=serving["launches"]["window_topk"],
+                 probes=probe_launches["window_topk"], cv=cv["launches"]["window_topk"],
+                 scored_sets=scored["launches"]["window_topk"],
+                 **{f"per-row int8 {m}": r["launches"]["window_topk"]
+                    for m, r in nonkernel["k1_per_row"]["retrieve"].items()},
+                 streamed=streamed["launches"]["window_topk"],
+                 **{f"sharded {m}": sharded[m]["launches"]["window_topk"]
+                    for m in ("mp1", "mp4")}),
+             note="S1, the stage-1 selection of K1's dots; no Pallas kernel: it replaces "
+                  "the XLA selections jax.lax.approx_max_k / lax.top_k at "
+                  "crypto_rec_tpu/ops/pallas/slabscore.py:486, :501, :503 and "
+                  "models/lsh/hypercube.py:473, :674, :778; equal to topk_desc bit for "
+                  "bit; library_ms: torch.topk; row: the CF point, phase 5, q = 8,192"),
     ]
 
     def probe_row(name, source, replaces, rows, **extra):
@@ -2611,7 +2845,10 @@ def main() -> int:
                       "cv": cv, "scored_sets": scored, "card_vs_cpu": card_vs_cpu,
                       "program_fused": program_fused, "nonkernel_paths": nonkernel,
                       "streamed": streamed, "ivf": ivf, "clis": clis, "sharded": sharded,
-                      "oracle_streamed": oracle_streamed, "ties": ties, "wall_s": wall,
+                      "oracle_streamed": oracle_streamed, "ties": ties,
+                      "s1_shapes": [dict(shape=list(k), phase=p)
+                                    for k, p in sorted(S1["shapes"].items())],
+                      "wall_s": wall,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

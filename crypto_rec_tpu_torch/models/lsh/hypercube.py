@@ -39,6 +39,7 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _dedup_topk_pairs, _window_offsets, augment_queries, rank_to_distance,
     slab_window_dots,
 )
+from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 from crypto_rec_tpu_torch.ops.topk import topk_asc
 
 _GROUP = 8      # windows per replicated query row of the shared-slab launch
@@ -231,13 +232,13 @@ def pack_cube(
 
 
 def _shared_slab_topk(dots, a_flat, rows_flat, n_rows, top_k):
-    """PER-WINDOW stage 1 over shared-slab dots [q*R, 8, win] (the LSH
-    production epilogue with absolute window offsets a_flat [q, T] into
-    rows_flat), then the id-dedup to top_k."""
+    """PER-WINDOW stage 1 (`window_topk`, S1 on the card) over shared-slab
+    dots [q*R, 8, win] (the LSH production epilogue with absolute window
+    offsets a_flat [q, T] into rows_flat), then the id-dedup to top_k."""
     q, T = a_flat.shape
     win = dots.shape[2]
     kk = min(top_k, win)
-    s1, lane = torch.topk(dots.reshape(q * T, win), kk, dim=1)
+    s1, lane = window_topk(dots.reshape(q * T, win), kk)
     s1 = s1.reshape(q, T * kk)
     gpos = (a_flat.long()[:, :, None] + lane.reshape(q, T, kk)).reshape(q, T * kk)
     ids1 = rows_flat[torch.clamp(gpos, max=rows_flat.shape[0] - 1)]
@@ -326,7 +327,7 @@ def _cube_retrieve_kernel(cube, queries, top_k, probes, per_probe, directed=True
     win = dots.shape[2]
     n_pad = cube.packed.shape[1]
     m1 = min(max(4 * top_k, 2 * _GROUP), probes * win)
-    s1, pos1 = torch.topk(dots.reshape(q, probes * win), m1, dim=1)
+    s1, pos1 = window_topk(dots.reshape(q, probes * win), m1)
     t_of = torch.div(pos1, win, rounding_mode="floor")
     gpos = torch.gather(a0.reshape(q, probes).long(), 1, t_of) + pos1 % win
     ids1 = cube.packed_rows[0][torch.clamp(gpos, max=n_pad - 1)]

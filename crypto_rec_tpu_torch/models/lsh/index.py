@@ -682,9 +682,10 @@ def candidate_ids_scored(
 
     K1 dots every lane of one maskless window per table; `slab_topk`'s
     per-table stage 1 keeps the kk = ceil(budget / L) best lanes of each
-    window with an exact `torch.topk` (the TPU ran `approx_max_k`, so the
-    port's survivors are a superset); its stage 2 sorts the survivors by
-    id, drops duplicates and pad rows and keeps the best `budget`, equal
+    window with S1 (`window_topk`: exact, equal scores lowest lane first;
+    the TPU ran `approx_max_k`, so the port's survivors are a superset, and
+    off the TPU JAX picks the same lanes); its stage 2 sorts the survivors
+    by id, drops duplicates and pad rows and keeps the best `budget`, equal
     scores lowest id first (as JAX's `lax.top_k` over the id-sorted
     scores).  >= kk distinct better rows in one window imply >= kk globally
     better rows, so the set holds the global score-top-ceil(budget / L).

@@ -13,7 +13,8 @@ P6 and P2's rounded_query), int8 tensor cores 1,979 TOP/s (P4's i8_dot,
 int8 x int8 -> int32), f32 FFMA 67 TFLOP/s (K2, whose hash parity rules out
 TF32; K1 on f32 slabs, which are not exact in bf16 and take FFMA; K1's
 other rows show it as the floor of a design without tensor cores).  P2's
-load_floor does no arithmetic: 0 operations, bound by its bytes alone.
+load_floor does no arithmetic: 0 operations, bound by its bytes alone, as
+is S1, the stage-1 selection (`s1_call`).
 """
 
 from __future__ import annotations
@@ -121,3 +122,10 @@ def k2_call(n: int, d: int, k: int, L: int) -> dict:
     written; 2 n d L k FLOP of f32 FFMA."""
     nbytes = 4 * (n * d + d * L * k + n * L)
     return bound(nbytes, 2.0 * n * d * L * k, F32_FFMA)
+
+
+def s1_call(R: int, m: int, k: int) -> dict:
+    """S1's bound (`window_topk`): values [R, m] f32 read once, [R, k] f32
+    values and int64 indices written.  Its comparisons run on no unit with
+    a published peak: bound by its bytes."""
+    return bound(4.0 * R * m + 12.0 * R * k, 0.0, None)

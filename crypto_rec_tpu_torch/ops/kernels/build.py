@@ -59,6 +59,8 @@ _SIGNATURES = {
     "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)
     "crt_blk_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (values, out_v, out_i, R, m, k, stream)
+    "crt_window_topk": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -18,9 +18,9 @@ from the pairs sorted by first row; it takes d % 64 == 0, d <= 256.  A CPU
 tensor runs `slab_window_dots_int4_plain`, a gather, the nibble unpack and
 two f32 einsums chunked over queries.  `slab_window_dots_int4_rowwise` is
 the previous design, one block per window (`csrc/int4slab.cu`), kept for
-side-by-side timing on the card.  Stage 1 of `slab_topk_int4` is an exact
-per-window `torch.topk` where the TPU ran `approx_max_k`, as in K1's
-epilogue.
+side-by-side timing on the card.  Stage 1 of `slab_topk_int4` is the
+exact per-window `window_topk` (S1 on the card, equal dots lowest lane
+first) where the TPU ran `approx_max_k`, as in K1's epilogue.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _check_tile_slab, _dedup_topk_pairs, align_starts, check_row_slab, probe_tile_rows,
     window_chunks,
 )
+from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 
 ALIGN4 = 64     # CSR-row alignment of int4 windows (32 packed rows)
 
@@ -175,7 +176,7 @@ def slab_topk_int4(
     win2 = win // 2
     n_pad = packed_rows.shape[1]
     kk = min(kk or top_k, win)
-    s1, lane = torch.topk(dots.reshape(q * L, win), kk, dim=1)
+    s1, lane = window_topk(dots.reshape(q * L, win), kk)
     s1 = s1.reshape(q, L * kk)
     lane = lane.reshape(q, L, kk)
     off = torch.where(lane < win2, 2 * lane, 2 * (lane - win2) + 1)

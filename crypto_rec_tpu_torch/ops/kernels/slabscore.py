@@ -20,13 +20,18 @@ the aligned overfetch scores real neighbouring CSR rows, a free multiprobe,
 and pad-sentinel rows are dropped by id in the epilogue.
 
 The epilogue (`slab_topk`, `_dedup_topk_pairs`) is plain torch, as the JAX
-package ran it outside Pallas.  Stage 1 here is an EXACT `torch.topk` per
-table window where the TPU ran `approx_max_k` (recall target 0.9): the
-port's stage-1 survivors are a superset of the TPU's.  Off the TPU,
-`approx_max_k` is exact, so the CPU references agree.  Cosine slabs are
-pre-normalized by pack_index, so the dot IS the similarity; euclidean
-slabs are augmented ([x, -|x|^2/2, 0-pad]) and dotted with [q, s, 0-pad],
-so the dot is the rank x.q - |x|^2/2 (`packed_retrieve_pallas_euclid`).
+package ran it outside Pallas, but for its stage-1 selection: S1
+(`ops/kernels/windowtopk.window_topk`, the Hopper kernel
+`csrc/windowtopk.cu` on CUDA tensors, `topk_desc` on CPU ones) per table
+window where the TPU ran `approx_max_k` (recall target 0.9), and flat
+where JAX runs `lax.top_k` (exact=True) or `approx_max_k`.  It is exact,
+so the port's stage-1 survivors are a superset of the TPU's; equal dots
+come back lowest lane first, as JAX's selections return them off the TPU
+(`approx_max_k` there is `lax.top_k`), so the CPU references agree lane
+for lane.  Cosine slabs are pre-normalized by pack_index, so the dot IS
+the similarity; euclidean slabs are augmented ([x, -|x|^2/2, 0-pad]) and
+dotted with [q, s, 0-pad], so the dot is the rank x.q - |x|^2/2
+(`packed_retrieve_pallas_euclid`).
 int8 global-scale slabs rank raw dots; callers dequantize scores with the
 stored scalar.  `packed_scale` ([L, n_pad] f32, per-row int8 packs) scales
 every lane by its slab row's scale, as the JAX package does after its
@@ -42,6 +47,7 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 from crypto_rec_tpu_torch.ops.topk import topk_desc
 
 ALIGN = 32         # window starts align down to this many rows
@@ -449,7 +455,9 @@ def slab_topk(
     """Two-stage dedup top-k over kernel dots.
 
     Stage 1 (exact=False, production) selects PER TABLE WINDOW: the top kk
-    lanes of each [win] row.  Rows within one window are distinct corpus
+    lanes of each [win] row (`window_topk`: S1 on the card, equal dots
+    lowest lane first, as JAX's `approx_max_k` off the TPU and
+    `lax.top_k`).  Rows within one window are distinct corpus
     rows, so if >= top_k lanes beat a lane in its own window, >= top_k
     distinct rows beat it globally — the union of per-window top-k's
     contains the global dedup top-k.  stage1_per_table overrides kk below
@@ -463,7 +471,7 @@ def slab_topk(
     q, L, win = dots.shape
     if not exact and (stage1_per_table or not stage1_width):
         kk = min(max(stage1_per_table or top_k, -(-top_k // L)), win)
-        s1, lane = torch.topk(dots.reshape(q * L, win), kk, dim=1)
+        s1, lane = window_topk(dots.reshape(q * L, win), kk)
         s1 = s1.reshape(q, L * kk)
         l_base = torch.arange(L, device=dots.device)[None, :, None] * win
         pos1 = (l_base + lane.reshape(q, L, kk)).reshape(q, L * kk)
@@ -471,7 +479,7 @@ def slab_topk(
         m1 = min(L * top_k, L * win)
         if stage1_width:
             m1 = min(m1, max(stage1_width, top_k))
-        s1, pos1 = torch.topk(dots.reshape(q, L * win), m1, dim=1)
+        s1, pos1 = window_topk(dots.reshape(q, L * win), m1)
     ids1 = lane_rows(pos1, aligned_starts, packed_rows, win)
     ids1 = torch.where(s1 > float("-inf"), ids1, n_rows)
     return _dedup_topk_pairs(s1, ids1, n_rows, top_k)

@@ -19,6 +19,12 @@ it, and several times more for a few winners of a long row;
 tools/chip_probes/topk_select.py times it at every caller's shape beside
 `torch.topk` and the tie-exact selections that were slower.
 
+The stage-1 selections of K1's epilogue (`slab_topk`, the cubes'
+shared-slab epilogue, P6's `slab_topk_int4`) go through
+`ops/kernels/windowtopk.window_topk` instead: on the card the Hopper
+kernel S1 (`csrc/windowtopk.cu`), which returns exactly what `topk_desc`
+returns, and `topk_desc` itself on the CPU.
+
 The masked forms take k above the axis length: the reference keeps every
 candidate when there are fewer than P (get_P_closest truncates only when
 size > P, crypto_rec.hpp:225-228), so the slots past the axis are invalid

@@ -23,7 +23,6 @@ from crypto_rec_tpu_torch.config import RecConfig
 from crypto_rec_tpu_torch.models.lsh import index as port_index
 from crypto_rec_tpu_torch.models.rec import engine as port_engine
 from crypto_rec_tpu_torch.models.rec import pipeline as port_pipeline
-from crypto_rec_tpu_torch.ops.kernels import slabscore as port_slab
 
 from _torch_parity import assert_recs_match, assert_topk_match, handover, to_np
 
@@ -195,27 +194,12 @@ def test_candidate_ids_scored_matches_jax(data, kind):
             *handover(data["cos"]), CPU), q, budget=64)
 
 
-class _StableStage1:
-    """torch, with `topk` a tie-ordered selection (`topk_desc`): stands in
-    for the port's exact stage-1 `torch.topk` where the TPU ran
-    `approx_max_k`, which promises no order among ties (JAX's, off the
-    TPU, returns them lowest lane first)."""
-
-    def __getattr__(self, name):
-        return getattr(torch, name)
-
-    @staticmethod
-    def topk(values, k, dim=-1):
-        from crypto_rec_tpu_torch.ops.topk import topk_desc
-
-        return topk_desc(values, k)
-
-
 @pytest.mark.parametrize("kind", ["int8", "float32"])
-def test_candidate_ids_scored_ties_go_to_the_lower_id(kind, monkeypatch):
-    """Duplicate corpus rows (equal candidate scores at the budget cut, the
-    stage-2 `torch.topk` site): with stage 1 tie-ordered as JAX's, the sets
-    equal JAX's exactly, lowest id first among equal scores."""
+def test_candidate_ids_scored_ties_go_to_the_lower_id(kind):
+    """Duplicate corpus rows (equal scores in stage 1's windows and at the
+    budget cut): the sets equal JAX's exactly, lowest lane and lowest id
+    first among equal scores, as the code ships (stage 1 is S1,
+    `window_topk`)."""
     rng = np.random.default_rng(5)
     base = rng.integers(-3, 4, size=(300, 64)).astype(np.float32)
     x = base[rng.integers(0, 300, size=2048)]
@@ -227,7 +211,6 @@ def test_candidate_ids_scored_ties_go_to_the_lower_id(kind, monkeypatch):
     want = np.asarray(jax_index.candidate_ids_scored(jp, jnp.asarray(qs), budget=30,
                                                      per_table=100))
     pidx = port_index.index_from_numpy(*handover(jp), CPU)
-    monkeypatch.setattr(port_slab, "torch", _StableStage1())
     got = port_index.candidate_ids_scored(pidx, torch.from_numpy(qs), budget=30,
                                           per_table=100)
     np.testing.assert_array_equal(got.numpy(), want)

@@ -847,3 +847,84 @@ def test_per_row_retrieval_on_the_card(cuda):
     with pytest.raises(ValueError, match="packed_scale"):
         slab_window_dots(packed, torch.zeros(4, 4, dtype=torch.int32, device=cuda), None,
                          q4, 200, mask=False, packed_scale=idx.packed_scale)   # on the CPU
+
+
+def _tied_rows(R, m, g, device):
+    """[R, m] f32 rows of exact ties: integers -4..4 with each 0 signed at
+    random, +-inf, NaN and -inf lanes; every fourth row in {-1, -0.0, 0.0},
+    every fourth row 95% -inf; the other rows' lanes mostly distinct."""
+    v = torch.randint(-4, 5, (R, m), generator=g).float()
+    u = torch.randint(0, 1000, (R, m), generator=g)
+    r = torch.arange(R)[:, None] % 4
+    v = torch.where(r == 3, -(u % 2).float(), v)
+    v = torch.where(r == 1, torch.randn(R, m, generator=g), v)
+    v = torch.where((v == 0) & (torch.rand(R, m, generator=g) < 0.5), -0.0, v)
+    v = torch.where((r == 2) & (u < 950), float("-inf"), v)
+    v = torch.where(u < 2, float("nan"), v)
+    v = torch.where((u >= 2) & (u < 4), float("inf"), v)
+    return torch.where((u >= 4) & (u < 40), float("-inf"), v).to(device)
+
+
+# every PER of the warp rows (m <= 1,024; k past 32 stores in groups of 32)
+# and every block width
+S1_SHAPES = [(37, 5), (128, 12), (256, 32), (300, 3), (488, 12), (640, 12), (640, 20),
+             (768, 20), (900, 10), (1024, 32), (1024, 1), (100, 100), (1, 1), (640, 86),
+             (2048, 40), (5120, 80), (8192, 256), (16384, 40), (32768, 1024), (33, 33)]
+
+
+@pytest.mark.parametrize("m,k", S1_SHAPES)
+def test_window_topk_kernel_equals_plain(cuda, m, k):
+    """S1 against topk_desc bit for bit (values and indices) on tied rows,
+    on the card and against the CPU; one launch counted."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    R = max(1, min(3000, (1 << 22) // m))
+    v = _tied_rows(R, m, torch.Generator().manual_seed(m * 7 + k), cuda)
+    before = window_topk.launches
+    got = window_topk(v, k)
+    torch.cuda.synchronize()
+    assert window_topk.launches == before + 1
+    assert got[0].shape == (R, k) and got[1].dtype == torch.int64
+    for want in (topk_desc(v, k), topk_desc(v.cpu(), k)):
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+        assert torch.equal(got[0].cpu().view(torch.int32), want[0].cpu().view(torch.int32))
+
+
+def test_window_topk_kernel_refuses_what_it_does_not_take(cuda):
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import MAX_K, MAX_M, window_topk
+
+    v = torch.zeros(4, 64, device=cuda)
+    for bad, err in [((v, 65), ValueError), ((v, 0), ValueError),
+                     ((torch.zeros(2, MAX_M + 1, device=cuda), 3), ValueError),
+                     ((torch.zeros(2, MAX_K + 1, device=cuda), MAX_K + 1), ValueError),
+                     ((v.double(), 3), TypeError), ((v[None], 3), ValueError)]:
+        with pytest.raises(err):
+            window_topk(*bad)
+    before = window_topk.launches
+    e = window_topk(torch.zeros(0, 64, device=cuda), 5)
+    assert e[0].shape == (0, 5) and window_topk.launches == before
+    strided = torch.arange(64 * 8, dtype=torch.float32, device=cuda).reshape(64, 8).t()
+    got = window_topk(strided, 3)       # not contiguous: the wrapper copies
+    assert torch.equal(got[1].cpu(), torch.full((8, 3), 63).cpu() - torch.arange(3))
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_stage1_sites_launch_s1(cuda, strict):
+    """slab_topk on card dots selects through S1 (one launch) and returns
+    what it returns on the CPU, ids exactly, on integer dots."""
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_topk
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+
+    g = torch.Generator().manual_seed(4)
+    q, L, win, n_pad = 512, 8, 640, 20000
+    dots = torch.randint(-3, 4, (q, L, win), generator=g).float()
+    a0 = torch.randint(0, n_pad - win, (q, L), generator=g, dtype=torch.int32)
+    rows = torch.stack([torch.randperm(n_pad, generator=g) for _ in range(L)]).int()
+    want = slab_topk(dots, a0, rows, n_pad, 20, exact=strict, stage1_per_table=12)
+    before = window_topk.launches
+    got = slab_topk(dots.to(cuda), a0.to(cuda), rows.to(cuda), n_pad, 20, exact=strict,
+                    stage1_per_table=12)
+    torch.cuda.synchronize()
+    assert window_topk.launches == before + 1
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])

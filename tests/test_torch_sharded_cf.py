@@ -183,3 +183,23 @@ def test_scored_engine_matches_jax(metric, dtype, seeds):
     assert int(got[5]["scanned_total"]) > 0
     if metric == "cosine" and dtype == "float32":
         assert int(got[5]["window_dropped_total"]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_scored_engine_ties_match_jax(dtype):
+    """Each user a copy of one of 4 distinct rows, queries copies too: each
+    shard's windows hold ~16 exactly tied copies of a query's row, and the
+    per-window stage 1 (S1, `window_topk`) keeps the lowest 6 lanes as
+    JAX's `approx_max_k` does off the TPU: neighbour ids exactly JAX's."""
+    rng = np.random.default_rng(41)
+    n, c, q = 8 * 64, 128, 12
+    br, bk, bm = _ratings(4, c, seed=42)
+    pick = rng.integers(0, 4, n)
+    nr, nm = br[pick], bm[pick]
+    rows = rng.choice(n, size=q, replace=False)
+    qr, qk, qm = nr[rows].copy(), bk[pick[rows]].copy(), nm[rows].copy()
+    want, got = run_both("sharded_recommend_scored", nr, nm, qr, qk, qm, "cosine", 3, 4,
+                         pack=dict(dtype=dtype), top_p=6, top_n=3, per_table=64)
+    np.testing.assert_array_equal(to_np(got[4]), np.asarray(want[4]))
+    assert_cf_match(want, got)
+    assert (to_np(got[4]) >= 0).all()

@@ -131,6 +131,36 @@ def test_ten_fold_mae_fused_matches_jax_kernel_path(monkeypatch):
     assert abs(got - want) < 1e-5, (got, want)
 
 
+def _scaled_copies(n, c, seed):
+    """n users, each a copy of one of 30 taste rows at scale 1, 2 or 4 with
+    that row's known coins: copies of a row have one direction (cosine
+    ties exactly, the scale being a power of two) but different ratings,
+    so which tied copies a query keeps as neighbours moves its prediction."""
+    rng = np.random.default_rng(seed)
+    base = np.round(rng.gamma(2.0, 1.0, (30, c)) * 4).astype(np.float32) + 1
+    known_b = rng.random((30, c)) < 0.3
+    known_b[:, :2] = True                              # two known coins at least
+    pick = rng.integers(0, 30, n)
+    full = base[pick] * (2.0 ** rng.integers(0, 3, n)).astype(np.float32)[:, None]
+    known = known_b[pick]
+    mean = ((full * known).sum(1) / known.sum(1)).astype(np.float32)
+    return np.where(known, full, mean[:, None]).astype(np.float32), known, mean
+
+
+def test_ten_fold_mae_fused_ties_match_jax(monkeypatch):
+    """The fused engine on a population of tied users (`_scaled_copies`):
+    stage 1 (S1, `window_topk`) keeps the lowest tied lanes as JAX's
+    `approx_max_k` does off the TPU, so the folds pick the same neighbours
+    and the MAE agrees within 1e-5."""
+    monkeypatch.setattr(jax_index, "retrieve_topk",
+                        lambda index, queries, corpus, top_k, per_table:
+                        jax_index.retrieve_topk_pallas(index, queries, corpus, top_k=top_k,
+                                                       per_table=per_table, interpret=True))
+    want, got = _mae_pair(_scaled_copies(300, 128, 6), "fused", "fixed", 4, 4, 8, 64)
+    assert np.isfinite(got) and got > 0
+    assert abs(got - want) < 1e-5, (got, want)
+
+
 def test_ten_fold_mae_draws_from_its_generator():
     users = RatingSet(*map(torch.from_numpy, _population(100, 10, 4)))
     args = (users, "cosine", 4, 4, 4, 1.0, 8)
