@@ -120,9 +120,10 @@ engines, in twenty-four phases; each phase raises on failure:
      (integers, +-0, +-inf, NaN, -inf runs): equal to topk_desc bit for
      bit on the card and, on the first S1_CPU_ROWS rows, to topk_desc on
      the CPU (0 differing sets and orders); timed beside torch.topk (the
-     library yardstick) and topk_desc with its byte bound.  Phases 5, 9
-     and 10 also hold S1 against topk_desc on the dots their paths
-     selected from, and time it there.
+     library yardstick), topk_desc and S1's previous design
+     (`window_topk_prev`, k serial arg-max rounds) with its byte bound.
+     Phases 5, 9 and 10 also hold S1 against topk_desc on the dots their
+     paths selected from, and time it there.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -2047,6 +2048,15 @@ S1 = dict(phase=None, shapes={}, kept={}, checked=set(), dots=[], quiet=False)
 S1_CHUNK = 1 << 18         # rows a topk_desc comparison sorts at once
 S1_CPU_ROWS = 2048         # rows of each tied block compared with the CPU
 S1_TIME_ELEMS = 1 << 29    # values timed at most beside the sort (2 GiB of f32)
+# S1's two bodies and the rows each serves
+S1_BODIES = [
+    dict(source="crypto_rec_tpu_torch/csrc/windowtopk.cu", entry="crt_window_topk",
+         serves="every row window_topk launches: warp rows (m <= 1,024, k <= 32), "
+                "block rows (1,024 < m <= 32,768, or k > 32)"),
+    dict(source="crypto_rec_tpu_torch/csrc/windowtopk_prev.cu", entry="crt_window_topk_prev",
+         serves="none on a path: the previous design (k serial arg-max rounds), "
+                "window_topk_prev, timed beside S1 (prev_ms)"),
+]
 
 
 def s1_record():
@@ -2092,17 +2102,20 @@ def _s1_against_plain(v, k):
 
 
 def s1_time(v, k):
-    """S1, torch.topk (the library yardstick) and topk_desc (the plain
-    version) on the same rows, alternating rounds, with S1's bound: on the
-    first S1_TIME_ELEMS // m rows (the sort of more would not fit beside
-    them), and then S1 alone on all the rows (all_rows_ms)."""
+    """S1, its previous design (prev_ms: k serial arg-max rounds,
+    csrc/windowtopk_prev.cu), torch.topk (the library yardstick) and
+    topk_desc (the plain version) on the same rows, alternating rounds,
+    with S1's bound: on the first S1_TIME_ELEMS // m rows (the sort of more
+    would not fit beside them), and then S1 alone on all the rows
+    (all_rows_ms)."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
-    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk, window_topk_prev
     from crypto_rec_tpu_torch.ops.topk import topk_desc
 
     full = v
     v = v[:max(1, S1_TIME_ELEMS // v.shape[1])]
     t = rounds_ms({"ms": lambda: window_topk(v, k),
+                   "prev_ms": lambda: window_topk_prev(v, k),
                    "library_ms": lambda: torch.topk(v, k, dim=1),
                    "plain_ms": lambda: topk_desc(v, k)})
     R, m = v.shape
@@ -2115,7 +2128,8 @@ def s1_time(v, k):
 
 def s1_line(phase, what, e):
     log(f"phase {phase} S1 {what}, timed on [{e['R']}, {e['m']}] k = {e['k']}: {ROUNDS} "
-        f"alternating rounds: S1 {e['ms']:.3f} ms, torch.topk {e['library_ms']:.3f}, topk_desc "
+        f"alternating rounds: S1 {e['ms']:.3f} ms, previous design {e['prev_ms']:.3f}, "
+        f"torch.topk {e['library_ms']:.3f}, topk_desc "
         f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.4f} ms (bytes): "
         f"{100 * e['share_of_bound']:.1f}% of it; S1 on all {e['all_rows']} rows "
         f"{e['all_rows_ms']:.3f} ms")
@@ -2784,11 +2798,14 @@ def main() -> int:
                  streamed=streamed["launches"]["window_topk"],
                  **{f"sharded {m}": sharded[m]["launches"]["window_topk"]
                     for m in ("mp1", "mp4")}),
+             bodies=S1_BODIES,
              note="S1, the stage-1 selection of K1's dots; no Pallas kernel: it replaces "
                   "the XLA selections jax.lax.approx_max_k / lax.top_k at "
                   "crypto_rec_tpu/ops/pallas/slabscore.py:486, :501, :503 and "
                   "models/lsh/hypercube.py:473, :674, :778; equal to topk_desc bit for "
-                  "bit; library_ms: torch.topk; row: the CF point, phase 5, q = 8,192"),
+                  "bit; prev_ms: the previous design (csrc/windowtopk_prev.cu) in the "
+                  "same rounds; library_ms: torch.topk; row: the CF point, phase 5, "
+                  "q = 8,192"),
     ]
 
     def probe_row(name, source, replaces, rows, **extra):

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "crt_blk_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (values, out_v, out_i, R, m, k, stream)
     "crt_window_topk": (_P, _P, _P, _I, _I, _I, _P),
+    "crt_window_topk_prev": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

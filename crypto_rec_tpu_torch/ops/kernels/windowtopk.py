@@ -16,8 +16,14 @@ to k, the plain version), on a CUDA tensor the Hopper kernel
 first, +0.0 and -0.0 equal, ties by index), or raises.
 
 The kernel keys each lane by 64 bits: `order_bits` of its value (stated
-here in plain torch) above ~index.  Rows of m <= 1,024 (the per-window
-forms) take one warp a row, longer rows one block; see the source.
+here in plain torch) above ~index.  It finds each row's threshold (the
+k-th largest image) from a lower bound read off the lanes' maxima and one
+counting pass, takes every image above it and the equal ones lowest index
+first, and sorts only those.  Rows of m <= 1,024 with k <= 32 (the
+per-window forms) take one warp a row, other rows one block; see the
+source.  `window_topk_prev` launches the previous design
+(`csrc/windowtopk_prev.cu`: k serial arg-max rounds a row), kept only so a
+run on the card can time it beside the kernel; no path calls it.
 """
 
 from __future__ import annotations
@@ -57,8 +63,24 @@ def window_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return _select(values, k)
 
 
+def window_topk_prev(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S1's previous design on a CUDA tensor (the same contract as
+    `window_topk`), for timing beside it; raises on a CPU tensor."""
+    if not values.is_cuda:
+        raise ValueError("window_topk_prev runs only on the card")
+    return _launch("crt_window_topk_prev", values, k)
+
+
 def _select(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check, allocate and launch `crt_window_topk` on a CUDA tensor."""
+    """Launch `crt_window_topk` on a CUDA tensor and count the launch."""
+    out = _launch("crt_window_topk", values, k)
+    if values.shape[0]:
+        window_topk.launches += 1
+    return out
+
+
+def _launch(entry: str, values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check, allocate and launch one of the S1 entry points."""
     if values.dim() != 2:
         raise ValueError(f"window_topk takes [R, m] rows, got {tuple(values.shape)}")
     if values.dtype != torch.float32:
@@ -75,12 +97,11 @@ def _select(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if R == 0:
         return out_v, out_i
     with torch.cuda.device(v.device):
-        err = build.library().crt_window_topk(
+        err = getattr(build.library(), entry)(
             v.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), R, m, k,
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, "window_topk")
-    window_topk.launches += 1
+    build.check(err, entry)
     return out_v, out_i
 
 

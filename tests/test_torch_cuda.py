@@ -865,11 +865,15 @@ def _tied_rows(R, m, g, device):
     return torch.where((u >= 4) & (u < 40), float("-inf"), v).to(device)
 
 
-# every PER of the warp rows (m <= 1,024; k past 32 stores in groups of 32)
-# and every block width
+# every PER of the warp rows (m <= 1,024, k <= 32) and both sides of each
+# branch: warp rows to block rows at m 1,024 / 1,025 and k 32 / 33, second
+# maxima in the warp bound from k 21, every block geometry's m boundary
 S1_SHAPES = [(37, 5), (128, 12), (256, 32), (300, 3), (488, 12), (640, 12), (640, 20),
              (768, 20), (900, 10), (1024, 32), (1024, 1), (100, 100), (1, 1), (640, 86),
-             (2048, 40), (5120, 80), (8192, 256), (16384, 40), (32768, 1024), (33, 33)]
+             (2048, 40), (5120, 80), (8192, 256), (16384, 40), (32768, 1024), (33, 33),
+             (1025, 12), (1025, 32), (640, 21), (640, 32), (640, 33), (1024, 33),
+             (2049, 40), (4096, 40), (4097, 40), (6144, 80), (6145, 80), (8193, 40),
+             (16385, 40), (32768, 40)]
 
 
 @pytest.mark.parametrize("m,k", S1_SHAPES)
@@ -889,6 +893,67 @@ def test_window_topk_kernel_equals_plain(cuda, m, k):
     for want in (topk_desc(v, k), topk_desc(v.cpu(), k)):
         assert torch.equal(got[1].cpu(), want[1].cpu())
         assert torch.equal(got[0].cpu().view(torch.int32), want[0].cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("m,k", S1_SHAPES[:20])
+def test_window_topk_prev_equals_plain(cuda, m, k):
+    """S1's previous design, kept for timing, still returns topk_desc's
+    answer bit for bit on tied rows."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk, window_topk_prev
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    R = max(1, min(3000, (1 << 22) // m))
+    v = _tied_rows(R, m, torch.Generator().manual_seed(m * 5 + k), cuda)
+    before = window_topk.launches
+    got = window_topk_prev(v, k)
+    torch.cuda.synchronize()
+    assert window_topk.launches == before
+    want = topk_desc(v, k)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    with pytest.raises(ValueError):
+        window_topk_prev(v.cpu(), k)
+
+
+@pytest.mark.parametrize("fill", [float("nan"), float("-inf"), -0.0, 2.5])
+@pytest.mark.parametrize("m,k", [(640, 12), (1024, 32), (640, 80), (16384, 40),
+                                 (32768, 1024)])
+def test_window_topk_kernel_on_constant_rows(cuda, fill, m, k):
+    """All-NaN, all--inf and all-equal rows (one row in four broken by a
+    single larger value): the first k indices, values as stored."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    R = 64
+    v = torch.full((R, m), fill, device=cuda)
+    v[::4, m // 2] = float("inf") if fill != fill else float("nan")
+    got = window_topk(v, k)
+    want = topk_desc(v.cpu(), k)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,cap", [(640, 12, 64), (1024, 32, 64), (5120, 40, 128),
+                                     (640, 80, 160)])
+@pytest.mark.parametrize("side", [-1, 0, 1])
+def test_window_topk_kernel_at_the_candidate_cap(cuda, m, k, cap, side):
+    """cap - 1, cap and cap + 1 images equal at the threshold, 0 .. k - 1
+    above it: each side of the kernel's candidate cap (sort path against
+    tie path) returns topk_desc's answer."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    g = torch.Generator().manual_seed(m + k + side)
+    R = 96
+    v = -torch.randint(1, 50, (R, m), generator=g).float()
+    for r in range(R):
+        at = torch.randperm(m, generator=g)[:cap + side]
+        v[r, at] = 7.0
+        v[r, at[:r % k]] = 9.0
+    got = window_topk(v.to(cuda), k)
+    want = topk_desc(v, k)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
 
 
 def test_window_topk_kernel_refuses_what_it_does_not_take(cuda):

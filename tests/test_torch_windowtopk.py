@@ -217,3 +217,180 @@ def test_multicube_per_window_stage1_ties_equal_jax(dup_cube_data, metric):
     pm = port_cube.multicube_from_numpy(*multicube_handover(jm), CPU)
     got = port_cube.multicube_retrieve_topk(pm, d["QS"], top_k=10, probes=8, per_probe=200)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+# ---------------------------------------------------------------------------
+# S1's threshold selection (csrc/windowtopk.cu) stated in plain torch: the
+# same bound, counts, cap, bisection and tie path as the kernel, row by
+# row, held against topk_desc and JAX's lax.top_k on the CPU.
+
+WARP_CAP = 64          # kWarpCap: candidates a warp row sorts
+TWO_MAX_K = 20         # kTwoMaxK: warp rows read second maxima above this k
+BLOCK_GEOMETRY = [(1024, 128, 8), (2048, 128, 16), (4096, 256, 16), (6144, 256, 24),
+                  (8192, 256, 32), (16384, 512, 32), (32768, 1024, 32)]
+
+
+def _s1_geometry(m, k):
+    """-> (threads a row, images a thread, candidate cap, warp rows?)."""
+    if m <= 1024 and k <= 32:
+        return 32, (m + 127) // 128 * 4, WARP_CAP, True
+    nt, per = next((nt, per) for mmax, nt, per in BLOCK_GEOMETRY if m <= mmax)
+    return nt, per, max(128, 2 * k), False
+
+
+def _desc(x, dim=-1):
+    return torch.sort(x, dim=dim, descending=True).values
+
+
+def _s1_lower_bound(grid, k, warp):
+    """The kernel's sound lower bound on each row's k-th largest image.
+    grid [R, PER, NT]: image of index j * NT + t at [:, j, t], 0 past m."""
+    lane_max = grid.max(1).values                                  # [R, NT]
+    R, nt = lane_max.shape
+    lo = torch.ones(R, dtype=torch.int64)
+    if warp:
+        lo = torch.maximum(lo, _desc(lane_max)[:, k - 1])
+        if k > TWO_MAX_K:      # ceil(k / 2) lanes hold two images >= this
+            second = _desc(grid, 1)[:, 1]
+            lo = torch.maximum(lo, _desc(second)[:, (k + 1) // 2 - 1])
+        return lo
+    lists = _desc(lane_max.view(R, nt // 32, 32))                  # each warp's, descending
+    for c in range(1, nt // 32 + 1):  # c warps hold ceil(k / c) lane maxima >= this
+        jj = -(-k // c)
+        if jj <= 32:
+            lo = torch.maximum(lo, _desc(lists[:, :, jj - 1])[:, c - 1])
+    return lo
+
+
+def s1_threshold_select(values, k):
+    """-> (values [R, k], indices [R, k], the path each row took): the
+    kernel's algorithm.  A lower bound lo from the lanes' maxima; if at
+    most `cap` images are >= lo, sort those (sort); else if fewer than k
+    are > lo, lo is the k-th largest: take every image > lo, then images
+    == lo lowest index first (tie); else bisect over (lo, row max] until
+    one of the two holds (bisect + the path it ended in)."""
+    R, m = values.shape
+    nt, per, cap, warp = _s1_geometry(m, k)
+    img = torch.zeros(R, per * nt, dtype=torch.int64)
+    img[:, :m] = order_bits(values)
+    lo_all = _s1_lower_bound(img.view(R, per, nt), k, warp)
+    out_v = torch.empty(R, k, dtype=values.dtype)
+    out_i = torch.empty(R, k, dtype=torch.int64)
+    paths = []
+    for r in range(R):
+        row, lo = img[r, :m], int(lo_all[r])
+        ge, gt = int((row >= lo).sum()), int((row > lo).sum())
+        assert ge >= k, "the bound must be sound"
+        path = ""
+        if ge > cap and gt >= k:
+            path, c_lo, hi, lo = "bisect+", gt, int(row.max()) + 1, lo + 1
+            while c_lo > cap and hi - lo > 1:
+                mid = lo + (hi - lo) // 2
+                c = int((row >= mid).sum())
+                lo, c_lo, hi = (mid, c, hi) if c >= k else (lo, c_lo, mid)
+            ge, gt = int((row >= lo).sum()), int((row > lo).sum())
+        if ge <= cap:
+            path += "sort"
+            cand = torch.nonzero(row >= lo).flatten()
+        else:
+            path += "tie"
+            assert gt < k
+            cand = torch.cat([torch.nonzero(row > lo).flatten(),
+                              torch.nonzero(row == lo).flatten()[:k - gt]])
+        cand = torch.sort(cand).values          # key = image above ~index
+        cand = cand[torch.sort(-row[cand], stable=True).indices][:k]
+        out_v[r], out_i[r] = values[r, cand], cand
+        paths.append(path)
+    return out_v, out_i, paths
+
+
+def _special_rows(rng, R, m):
+    """Rows of +-0, NaN of both signs, +-inf runs and a few integers."""
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0, -1.0, 2.0],
+                    np.float32)
+    v = pool[rng.integers(0, len(pool), size=(R, m))]
+    for r in range(R):                          # a run of -inf and one of +inf
+        a = rng.integers(0, m)
+        v[r, a:a + rng.integers(1, m // 2 + 2)] = -np.inf if r % 2 else np.inf
+    return v
+
+
+def _cap_tie_rows(rng, R, m, k, cap):
+    """More than `cap` images equal at the threshold, a few above it."""
+    v = rng.integers(-50, 0, size=(R, m)).astype(np.float32)
+    for r in range(R):
+        at = rng.choice(m, size=min(m, cap + 1 + r), replace=False)
+        v[r, at] = 7.0
+        v[r, at[:r % k]] = 9.0                  # 0 .. k - 1 above the tie
+    return v
+
+
+def _lane_skewed_rows(rng, R, m):
+    """Continuous rows whose largest values sit in 4 lanes of each warp, so
+    the bound from lane maxima is weak and the bisection runs."""
+    v = rng.standard_normal((R, m)).astype(np.float32)
+    v[:, (np.arange(m) % 32) < 4] += 10.0
+    return v
+
+
+S1_LOGIC_CASES = [  # (kind, m, k): warp rows, block rows, k = 1, k = m, k past 32
+    ("ints", 640, 12), ("ints", 1024, 10), ("ints", 896, 20), ("ints", 640, 32),
+    ("ints", 37, 37), ("ints", 300, 1), ("ints", 640, 80), ("ints", 1025, 40),
+    ("ints", 5120, 80), ("ints", 16384, 40), ("ints", 2048, 1024),
+    ("special", 640, 12), ("special", 488, 32), ("special", 100, 100),
+    ("special", 1024, 1), ("special", 5120, 40), ("special", 1500, 1024),
+    ("equal", 640, 12), ("equal", 1024, 32), ("equal", 64, 64), ("equal", 8192, 256),
+    ("cap_ties", 640, 12), ("cap_ties", 1024, 32), ("cap_ties", 4096, 40),
+    ("cap_ties", 640, 50),
+    ("skewed", 640, 12), ("skewed", 1024, 20), ("skewed", 5120, 40), ("skewed", 2048, 33),
+    ("normal", 640, 12), ("normal", 640, 32), ("normal", 16384, 40),
+]
+
+
+def _logic_rows(kind, m, k, seed):
+    rng = np.random.default_rng(seed)
+    R = 6 if m > 4096 else 16
+    if kind == "ints":
+        return rng.integers(-4, 5, size=(R, m)).astype(np.float32)
+    if kind == "special":
+        return _special_rows(rng, R, m)
+    if kind == "equal":
+        return np.full((R, m), rng.choice([0.0, -1.5, 3.0]), np.float32)
+    if kind == "cap_ties":
+        return _cap_tie_rows(rng, R, m, k, _s1_geometry(m, k)[2])
+    if kind == "skewed":
+        return _lane_skewed_rows(rng, R, m)
+    return rng.standard_normal((R, m)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,m,k", S1_LOGIC_CASES)
+def test_s1_threshold_select_equals_topk_desc(kind, m, k):
+    """The kernel's selection stated in plain torch returns topk_desc's
+    answer bit for bit (values and indices) and, on rows without NaN or
+    signed zeros, JAX's lax.top_k's."""
+    v = _logic_rows(kind, m, k, seed=m * 31 + k)
+    t = torch.from_numpy(v)
+    got_v, got_i, paths = s1_threshold_select(t, k)
+    want_v, want_i = topk_desc(t, k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    if kind in ("ints", "cap_ties", "skewed", "normal") or (kind == "equal" and v[0, 0] != 0):
+        jv, ji = jax.lax.top_k(jnp.asarray(v), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(jv))
+    if kind in ("cap_ties", "equal") and k < m:
+        assert all(p.endswith("tie") for p in paths), paths
+    if kind == "skewed":
+        assert all(p.startswith("bisect+") for p in paths), paths
+
+
+def test_s1_threshold_select_reaches_every_path():
+    """Across the cases above every path of the kernel runs, on warp rows
+    and on block rows: sort, tie, and the bisection ending in each."""
+    seen = set()
+    for kind, m, k in S1_LOGIC_CASES:
+        paths = s1_threshold_select(torch.from_numpy(_logic_rows(kind, m, k, m * 31 + k)),
+                                    k)[2]
+        seen |= {(_s1_geometry(m, k)[3], p) for p in paths}
+    for warp in (True, False):
+        assert {(warp, p) for p in ("sort", "tie", "bisect+sort")} <= seen, seen
