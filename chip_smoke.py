@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It drives the port's serving paths at `bench.py`'s operating points on one
 2M x 128 planted corpus on the card, the recommender program and its
 10-fold CV, the rest of the single-chip package and the sharded
-engines, in twenty-four phases; each phase raises on failure:
+engines, in twenty-five phases; each phase raises on failure:
 
   1. device: nvidia-smi's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds printed);
@@ -123,7 +123,23 @@ engines, in twenty-four phases; each phase raises on failure:
      library yardstick), topk_desc and S1's previous design
      (`window_topk_prev`, k serial arg-max rounds) with its byte bound.
      Phases 5, 9 and 10 also hold S1 against topk_desc on the dots their
-     paths selected from, and time it there.
+     paths selected from, and time it there;
+ 25. wide rows, the public sets' shapes on planted corpora made from the
+     seed: (a) cosine 1,000,000 x 1,536 (dbpedia-openai-1000k-angular's
+     shape; L = 8, k = 13, int8 slabs): build (K2 at d = 1,536),
+     retrieve_topk at q = 8,192 (K2, K1, S1, dedup, rerank), then the
+     single cosine cube at 40 probes x 992 (S1 over 40,960 lanes, two
+     levels); (b) euclidean 1,000,000 x 960 (GIST-1M's shape; augmented
+     int8, d_aug 1,024, L = 4); each counted, recall@10 against
+     exact_nearest on 1,024 queries >= 0.90, K1 against its plain version
+     on every window of the path's call, K2 ids against the plain
+     version's; (c) the program's 15 coins (phase 13's dataset):
+     ten_fold_mae fused beside mask, and candidate_ids_scored on f32
+     slabs (K1 at d = 15, its f32 body), card against CPU, and on int8
+     slabs (rows of 15 B: K1's chunked FFMA body); then S1 on
+     tied rows at [R, 40,960] and [R, 131,072] k = 40 and [R, 8,192]
+     k = 2,048, bit for bit against topk_desc.  Times: CUDA events and
+     the profiler's device time of each kernel, with its bound.
 
 Times are CUDA-event medians of alternating rounds: K2 against its
 previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
@@ -143,7 +159,8 @@ ten_fold_mae; phase 15: one candidate_ids_scored call; phases 17, 19
 and 21: the fused program, the streamed pass, each CLI run; phase 22:
 build, pack, retrieve and scored CF at each mp) and read just after it;
 each kernel of the path must show > 0, and every counted run that
-launches K1 must show S1 too (`check_s1`).
+launches K1 must show S1 too (`check_s1`); phase 25 counts each of its
+paths apart.
 The comparisons and timings run outside those windows.  The second-to-last
 line is a JSON object with each kernel's route, source, main-path launches,
 error against its plain version, times, bound and share of it, every
@@ -233,11 +250,12 @@ def check_k2(corpus, proj, k, L):
     """K2 against its plain version on every corpus row.  A row may differ
     only where a projection lies within 1e-5 |x||r| of 0 (f32 summation
     order decides its sign); any other difference raises.  Then the kernel,
-    its previous design, one torch.matmul(x, proj) (the library yardstick,
-    TF32 off) and the plain version in alternating rounds."""
+    its previous design (where `prev_takes`: it keeps all of proj in shared
+    memory), one torch.matmul(x, proj) (the library yardstick, TF32 off)
+    and the plain version in alternating rounds."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.signproj import (
-        signproj_bucket_ids, signproj_bucket_ids_plain, signproj_bucket_ids_prev,
+        prev_takes, signproj_bucket_ids, signproj_bucket_ids_plain, signproj_bucket_ids_prev,
     )
 
     n = corpus.shape[0]
@@ -256,7 +274,8 @@ def check_k2(corpus, proj, k, L):
     max_err = float((ids_k - ids_p).abs().max())
     del ids_k, ids_p
     t = rounds_ms({"ms": lambda: signproj_bucket_ids(corpus, proj, k, L),
-                   "prev_ms": lambda: signproj_bucket_ids_prev(corpus, proj, k, L),
+                   "prev_ms": ((lambda: signproj_bucket_ids_prev(corpus, proj, k, L))
+                               if prev_takes(corpus.shape[1], k, L) else None),
                    "library_ms": lambda: torch.matmul(corpus, proj),
                    "plain_ms": lambda: signproj_bucket_ids_plain(corpus, proj, k, L)})
     entry = dict(geometry=f"L = {L}, k = {k}, [{n}, {corpus.shape[1]}] x "
@@ -270,9 +289,14 @@ def k2_line(phase, e):
     log(f"phase {phase} K2 signproj {e['geometry']}: {e['rows_differ']} rows differ "
         f"({e['rows_near_zero']} rows have a projection within 1e-5 |x||r| of 0); "
         f"{ROUNDS} alternating rounds: kernel {e['ms']:.3f} ms, previous design "
-        f"{e['prev_ms']:.3f}, torch.matmul {e['library_ms']:.3f}, plain "
+        f"{_ms(e['prev_ms'])}, torch.matmul {e['library_ms']:.3f}, plain "
         f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
         f"{e['peak']}): {100 * e['share_of_bound']:.1f}% of it")
+
+
+def _ms(t, unit=""):
+    """A time, or what stands in for one the design cannot take."""
+    return "not timed (outside its limits)" if t is None else f"{t:.3f}{unit}"
 
 
 def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab, packed_scale=None):
@@ -307,19 +331,24 @@ def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab, packed_scale=
 
 def k1_time(label, packed, s0, sizes, qk, per_table, shared_slab, plain=True,
             rounds=ROUNDS):
-    """The tile-major K1, its row-wise body and (plain=True) the plain
-    version, mask off, in alternating rounds on the same windows, with the
-    call's bound.  K1 has no one PyTorch call for a library yardstick (a
-    gather and an einsum are two): library_ms is None."""
+    """The tile-major K1, its row-wise body (where `row_slab_takes`) and
+    (plain=True) the plain version, mask off, in alternating rounds on the
+    same windows, with the call's bound.  K1 has no one PyTorch call for a
+    library yardstick (a gather and an einsum are two): library_ms is None."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise, window_len,
+        row_slab_takes, slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise,
+        window_len,
     )
 
     a = (packed, s0, sizes, qk, per_table)
     kw = dict(mask=False, shared_slab=shared_slab)
+    rowwise = row_slab_takes(packed.dtype, packed.shape[2])
+    if not rowwise:
+        log(f"K1 {label}: the row-wise body takes rows of d % 16 == 0 and at most "
+            f"2,048 B; not timed")
     t = rounds_ms({"ms": lambda: slab_window_dots(*a, **kw),
-                   "prev_ms": lambda: slab_window_dots_rowwise(*a, **kw),
+                   "prev_ms": (lambda: slab_window_dots_rowwise(*a, **kw)) if rowwise else None,
                    "plain_ms": (lambda: slab_window_dots_plain(*a, **kw)) if plain else None},
                   rounds)
     entry = dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
@@ -333,7 +362,7 @@ def k1_line(phase, e, err=None):
     chk = "" if err is None else f"max |err| {err:.3g} (mask on/off, every window); "
     log(f"phase {phase} K1 {e['geometry']}: slab {e['slab']} {e['dtype']}, win "
         f"{e['win']}, {e['rows']} rows x {e['windows_per_row']} windows: {chk}"
-        f"tile-major {e['ms']:.3f} ms, row-wise {e['prev_ms']:.3f} ms, plain {plain}; "
+        f"tile-major {e['ms']:.3f} ms, row-wise {_ms(e['prev_ms'], ' ms')}, plain {plain}; "
         f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}; f32 FFMA floor "
         f"{e['ffma_bound_ms']:.3f} ms): {100 * e['share_of_bound']:.1f}% of it")
 
@@ -2051,8 +2080,13 @@ S1_TIME_ELEMS = 1 << 29    # values timed at most beside the sort (2 GiB of f32)
 # S1's two bodies and the rows each serves
 S1_BODIES = [
     dict(source="crypto_rec_tpu_torch/csrc/windowtopk.cu", entry="crt_window_topk",
-         serves="every row window_topk launches: warp rows (m <= 1,024, k <= 32), "
+         serves="rows of m <= 32,768 with k <= 1,024: warp rows (m <= 1,024, k <= 32), "
                 "block rows (1,024 < m <= 32,768, or k > 32)"),
+    dict(source="crypto_rec_tpu_torch/csrc/windowtopk.cu", entry="crt_window_topk_segments",
+         serves="the first level of rows of m > 32,768 (k <= 1,024): block rows on each "
+                "32,768-lane segment, then crt_window_topk over the winners (phase 25)"),
+    dict(source="crypto_rec_tpu_torch/csrc/windowtopk.cu", entry="crt_window_topk_large",
+         serves="k > 1,024: a radix select a row, the winners sorted in scratch (phase 25)"),
     dict(source="crypto_rec_tpu_torch/csrc/windowtopk_prev.cu", entry="crt_window_topk_prev",
          serves="none on a path: the previous design (k serial arg-max rounds), "
                 "window_topk_prev, timed beside S1 (prev_ms)"),
@@ -2061,7 +2095,7 @@ S1_BODIES = [
 
 def s1_record():
     """Route S1's launches through a recorder of their shapes (and, in
-    phases 5, 9 and 10, of the first dots at each shape).  The wrapper
+    phases 5, 9, 10 and 25, of the first dots at each shape).  The wrapper
     still counts each launch where it makes it."""
     from crypto_rec_tpu_torch.ops.kernels import windowtopk
 
@@ -2071,7 +2105,7 @@ def s1_record():
         key = (int(values.shape[0]), int(values.shape[1]), int(k))
         if not S1["quiet"]:          # not the checks' and timings' own calls
             S1["shapes"].setdefault(key, S1["phase"])
-            if S1["phase"] in (5, 9, 10) and key not in S1["checked"]:
+            if S1["phase"] in (5, 9, 10, 25) and key not in S1["checked"]:
                 S1["kept"].setdefault(key, values)
         return launch(values, k)
 
@@ -2114,8 +2148,11 @@ def s1_time(v, k):
 
     full = v
     v = v[:max(1, S1_TIME_ELEMS // v.shape[1])]
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import MAX_K, MAX_M
+
     t = rounds_ms({"ms": lambda: window_topk(v, k),
-                   "prev_ms": lambda: window_topk_prev(v, k),
+                   "prev_ms": ((lambda: window_topk_prev(v, k))
+                               if v.shape[1] <= MAX_M and k <= MAX_K else None),
                    "library_ms": lambda: torch.topk(v, k, dim=1),
                    "plain_ms": lambda: topk_desc(v, k)})
     R, m = v.shape
@@ -2128,7 +2165,7 @@ def s1_time(v, k):
 
 def s1_line(phase, what, e):
     log(f"phase {phase} S1 {what}, timed on [{e['R']}, {e['m']}] k = {e['k']}: {ROUNDS} "
-        f"alternating rounds: S1 {e['ms']:.3f} ms, previous design {e['prev_ms']:.3f}, "
+        f"alternating rounds: S1 {e['ms']:.3f} ms, previous design {_ms(e['prev_ms'])}, "
         f"torch.topk {e['library_ms']:.3f}, topk_desc "
         f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.4f} ms (bytes): "
         f"{100 * e['share_of_bound']:.1f}% of it; S1 on all {e['all_rows']} rows "
@@ -2416,6 +2453,380 @@ def phase22(corpus, queries, true_idx, q_known, q_mean, single_recall, single_qp
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"phase 22 peak device memory {res['peak_bytes'] / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
+    return res
+
+
+# phase 25: the paths at the public sets' widths, on planted corpora made
+# from the seed (nothing is downloaded): (a) cosine at the shape of
+# dbpedia-openai-1000k-angular, 1,000,000 x 1,536 (index L = 8, k = 13,
+# int8 global-scale slabs; the single cosine cube at 40 probes x 992, so S1
+# selects over 40,960 lanes); (b) euclidean at GIST-1M's shape, 1,000,000 x
+# 960 (p-stable k = 5, L = 4, w scaled with sqrt(d) from phase 9's 20 to
+# 55, augmented int8 slabs of d_aug = 1,024); (c) the program's 15 coins
+# (phase 13's dataset): ten_fold_mae on the fused and mask engines, and
+# candidate_ids_scored on f32 and int8 slabs (K1 at d = 15).
+WIDE = dict(n=1_000_000, q=8192, oracle_q=1024, floor=0.90,
+            cos=dict(d=1536, k=13, L=8, per_table=488, cube_k=13, probes=40,
+                     per_probe=992, cube_q=2048),
+            euc=dict(d=960, k=5, L=4, w=55.0, div=4, per_table=768),
+            cv=dict(budget=64, per_table=256),
+            s1=((40960, 40, 1600), (131072, 40, 512), (8192, 2048, 2048)),
+            s1_cpu_rows=64)
+KERNEL_NAMES = dict(slab_window_dots="tile_dots", signproj_bucket_ids="signproj_kernel",
+                    window_topk=("block_rows", "warp_rows", "radix_rows"))
+
+
+def device_ms(fn, names, reps=5):
+    """The device time per call of fn's kernels whose names contain one of
+    `names` (the wrapper's own launch, not its plain-torch work list),
+    from a torch.profiler trace of `reps` calls after one warm call."""
+    names = (names,) if isinstance(names, str) else names
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    us = sum(e.get("dur", 0) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"
+             and any(n in e.get("name", "") for n in names))
+    return us / 1e3 / reps
+
+
+def wide_k1(label, packed, s0, sizes, qk, per_table, shared):
+    """K1 on a wide path's own windows: against its plain version on every
+    window (both masks), then timed (events, beside the row-wise body where
+    it runs and the plain version) with the profiler's device time and the
+    bound."""
+    e_err = k1_check(label, packed, s0, sizes, qk, per_table, shared)
+    e = k1_time(label, packed, s0, sizes, qk, per_table, shared, rounds=3)
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
+
+    e["device_ms"] = device_ms(lambda: slab_window_dots(packed, s0, sizes, qk, per_table,
+                                                        mask=False, shared_slab=shared),
+                               KERNEL_NAMES["slab_window_dots"])
+    e["max_abs_err"] = e_err
+    k1_line(25, e, e_err)
+    log(f"phase 25 K1 {label}: device time of the kernel {e['device_ms']:.3f} ms a call "
+        f"(profiler)")
+    return e
+
+
+def wide_k2(x, proj, k, L, label):
+    e = check_k2(x, proj, k, L)
+    from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
+
+    e["device_ms"] = device_ms(lambda: signproj_bucket_ids(x, proj, k, L),
+                               KERNEL_NAMES["signproj_bucket_ids"])
+    e["geometry"] += f" ({label})"
+    k2_line(25, e)
+    log(f"phase 25 K2 {label}: device time of the kernel {e['device_ms']:.3f} ms a call "
+        f"(profiler)")
+    return e
+
+
+def wide_oracle(corpus, queries, metric, ids, label):
+    """recall@10 of the path's ids against exact_nearest on the first
+    oracle_q queries; raises under the floor."""
+    from crypto_rec_tpu_torch.ops.oracle import exact_nearest, recall_at_k
+
+    nq = min(WIDE["oracle_q"], queries.shape[0])
+    _, exact = exact_nearest(queries[:nq], corpus, metric, TOP_K, block_rows=256)
+    recall = recall_at_k(ids[:nq], exact)
+    log(f"phase 25 {label}: recall@{TOP_K} against exact_nearest on {nq} queries "
+        f"{recall:.4f} (floor {WIDE['floor']})")
+    if recall < WIDE["floor"]:
+        raise AssertionError(f"{label}: recall@{TOP_K} {recall:.4f} < {WIDE['floor']}")
+    return recall
+
+
+def wide_launches(label, launches, need):
+    log(f"phase 25 {label} launches: {launches}")
+    missing = [k for k in need if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label}: {missing} did not run: {launches}")
+    check_s1(label, launches)
+
+
+def wide_cosine():
+    """(a): build (K2 at d = 1,536), int8 pack, retrieve_topk at q = 8,192
+    (K2 query hash, K1, S1, dedup, rerank), counted; then the single
+    cosine cube at 40 probes x 992, counted; each against exact_nearest,
+    each kernel against its plain version on the path's inputs."""
+    from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+    from crypto_rec_tpu_torch.models.lsh.hypercube import (
+        build_hypercube, cube_retrieve_topk, cube_windows, pack_cube,
+    )
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, pack_index, query_hashes, retrieve_topk,
+    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+
+    c, n, q = WIDE["cos"], WIDE["n"], WIDE["q"]
+    t0 = time.perf_counter()
+    corpus, queries, _ = planted_clustered_corpus(
+        torch.Generator(device=DEV).manual_seed(SEED + 250), n, c["d"], q, TOP_K)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    index = build_index(gen(SEED + 251), corpus, "cosine", c["k"], c["L"])
+    pidx = pack_index(index, corpus, dtype=torch.int8)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores, ids = retrieve_topk(pidx, queries, corpus, TOP_K, per_table=c["per_table"])
+    torch.cuda.synchronize()
+    t_ret = time.perf_counter() - t0
+    launches = read_counts()
+    wide_launches("(a) cosine LSH", launches,
+                  ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    check_topk(scores, ids, q, n, "(a) cosine LSH")
+    recall = wide_oracle(corpus, queries, "cosine", ids, "(a) cosine LSH")
+    del scores, ids
+    k2 = wide_k2(corpus, pidx.family.proj, c["k"], c["L"], "(a)'s index build, d = 1,536")
+    qv = unit(queries)
+    qb, _ = query_hashes(pidx, qv)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, c["per_table"])
+    k1 = wide_k1(f"(a) cosine LSH, int8 d = {c['d']}, q = {q}", pidx.packed, s0, sizes, qv,
+                 c["per_table"], False)
+    log(f"phase 25 (a) cosine LSH {n} x {c['d']} k={c['k']} L={c['L']} window "
+        f"{c['per_table']} (slabs {list(pidx.packed.shape)}, "
+        f"{pidx.packed.numel() / 2**30:.2f} GiB): data {t_data:.1f} s, build + pack "
+        f"{t_build:.1f} s, retrieve_topk q={q} {t_ret * 1e3:.1f} ms (first call)")
+    del index, pidx, s0, sizes
+    torch.cuda.empty_cache()
+
+    cq = queries[:c["cube_q"]]
+    zero_counts()
+    t0 = time.perf_counter()
+    cube = pack_cube(build_hypercube(gen(SEED + 252), corpus, "cosine", c["cube_k"], 1.0),
+                     corpus, dtype=torch.int8)
+    scores, ids = cube_retrieve_topk(cube, cq, corpus, TOP_K, c["probes"], c["per_probe"])
+    torch.cuda.synchronize()
+    t_cube = time.perf_counter() - t0
+    cube_launches = read_counts()
+    wide_launches("(a) single cosine cube", cube_launches,
+                  ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    check_topk(scores, ids, cq.shape[0], n, "(a) single cosine cube")
+    cube_recall = wide_oracle(corpus, cq, "cosine", ids, "(a) single cosine cube")
+    del scores, ids
+    rows = grouped(*cube_windows(cube, cq, c["probes"], c["per_probe"]), unit(cq))
+    cube_k1 = wide_k1(f"(a) single cosine cube, {c['probes']} probes x {c['per_probe']}, "
+                      f"q = {cq.shape[0]}", cube.packed, *rows, c["per_probe"], True)
+    log(f"phase 25 (a) single cosine cube k={c['cube_k']} probes={c['probes']} window "
+        f"{c['per_probe']} (slab {list(cube.packed.shape)}): build + pack + retrieve "
+        f"q={cq.shape[0]} {t_cube:.1f} s")
+    del cube, rows, corpus, queries, qv
+    torch.cuda.empty_cache()
+    return dict(launches=launches, recall=recall, build_pack_s=t_build, k1=k1, k2=k2,
+                cube=dict(launches=cube_launches, recall=cube_recall, k1=cube_k1,
+                          seconds=t_cube))
+
+
+def wide_euclidean():
+    """(b): p-stable build, augmented int8 pack (d_aug = 1,024), retrieve_topk
+    at q = 8,192 (K1, S1, dedup, rerank), counted; against exact_nearest;
+    K1 against its plain version on the path's windows."""
+    from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, pack_index, query_hashes, retrieve_topk,
+    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import (
+        augment_queries, euclid_window_offsets,
+    )
+
+    c, n, q = WIDE["euc"], WIDE["n"], WIDE["q"]
+    corpus, queries, _ = planted_clustered_corpus(
+        torch.Generator(device=DEV).manual_seed(SEED + 253), n, c["d"], q, TOP_K)
+    zero_counts()
+    t0 = time.perf_counter()
+    index = build_index(gen(SEED + 254), corpus, "euclidean", c["k"], c["L"],
+                        lsh_bucket_div=c["div"], euclidean_h_w=c["w"])
+    pidx = pack_index(index, corpus, dtype=torch.int8, augment=True)
+    scores, ids = retrieve_topk(pidx, queries, corpus, TOP_K, per_table=c["per_table"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    wide_launches("(b) euclidean LSH", launches, ("slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    check_topk(scores, ids, q, n, "(b) euclidean LSH")
+    recall = wide_oracle(corpus, queries, "euclidean", ids, "(b) euclidean LSH")
+    del scores, ids
+    qb, qd = query_hashes(pidx, queries)
+    s0, sizes = euclid_window_offsets(pidx.bucket_starts, pidx.packed_detailed, qb, qd,
+                                      c["per_table"])
+    q_aug = augment_queries(queries, pidx.packed_aug_scale, pidx.packed.shape[2])
+    k1 = wide_k1(f"(b) euclidean LSH, augmented int8 d_aug = {pidx.packed.shape[2]}, "
+                 f"q = {q}", pidx.packed, s0, sizes, q_aug, c["per_table"], False)
+    log(f"phase 25 (b) euclidean LSH {n} x {c['d']} k={c['k']} L={c['L']} w={c['w']} "
+        f"window {c['per_table']} (slabs {list(pidx.packed.shape)}, "
+        f"{pidx.packed.numel() / 2**30:.2f} GiB): build + pack + retrieve {t_run:.1f} s")
+    del corpus, queries, index, pidx, s0, sizes, q_aug
+    torch.cuda.empty_cache()
+    return dict(launches=launches, recall=recall, seconds=t_run, k1=k1)
+
+
+def wide_program(ds):
+    """(c): the program's users (phase 13's dataset, 15 coins):
+    ten_fold_mae on the fused engine (counted: K2; at d = 15 its
+    retrieve_topk takes packed_retrieve_core in both packages, so K1 does
+    not run there) beside the mask engine's, then candidate_ids_scored on
+    f32 slabs of the users (d = 15, counted: K2, K1 in its f32 body, S1),
+    its sets against the CPU's (equal, or equal scores where they differ),
+    and on int8 slabs of the same index (rows of 15 B, not 16-byte
+    aligned: K1's chunked FFMA body, counted); K1 against its plain
+    version on each call's windows."""
+    from crypto_rec_tpu_torch.config import load_config
+    from crypto_rec_tpu_torch.io.native import read_header_p, score_tweets_native
+    from crypto_rec_tpu_torch.io.users import build_user_matrix
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, candidate_ids_scored, pack_index, query_hashes,
+    )
+    from crypto_rec_tpu_torch.models.rec.engine import RatingSet
+    from crypto_rec_tpu_torch.models.rec.validate import ten_fold_mae
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+
+    tweets, conf = ds
+    cfg = load_config(conf)
+    top_p = read_header_p(tweets, cfg.csv_delimiter) or cfg.topP
+    users = build_user_matrix(score_tweets_native(tweets, cfg.lexicon_file, cfg.query_file,
+                                                  cfg.csv_delimiter))
+    real = RatingSet.from_user_matrix(users, DEV)
+    maes = {}
+    cv_launches = {}
+    for engine in ("fused", "mask"):
+        zero_counts()
+        maes[engine] = ten_fold_mae(gen(SEED + 255), real, "cosine", cfg.k, cfg.L,
+                                    cfg.lsh_bucket_div, cfg.euclidean_h_w, top_p,
+                                    engine=engine, candidate_budget=cfg.candidate_budget)
+        cv_launches[engine] = read_counts()
+    log(f"phase 25 (c) ten_fold_mae on the program's {real.ratings.shape[0]} users x "
+        f"{real.ratings.shape[1]} coins: fused MAE {maes['fused']:.4f}, mask MAE "
+        f"{maes['mask']:.4f}; launches {cv_launches}")
+    if not cv_launches["fused"]["signproj_bucket_ids"] or not all(
+            np.isfinite(v) for v in maes.values()):
+        raise AssertionError(f"(c) 10-fold CV: K2 did not run or MAE {maes}")
+    c = WIDE["cv"]
+    index = build_index(gen(SEED + 256), real.ratings, "cosine", cfg.k, cfg.L)
+    pidx = pack_index(index, real.ratings, dtype=torch.float32)
+    zero_counts()
+    ids = candidate_ids_scored(pidx, real.ratings, c["budget"], c["per_table"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wide_launches("(c) candidate_ids_scored, f32 d = 15", launches,
+                  ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    cpu_idx = dataclasses.replace(
+        pidx, **{f: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for f, v in vars(pidx).items() if f != "family"},
+        family=dataclasses.replace(pidx.family, proj=pidx.family.proj.cpu()))
+    ids_cpu = candidate_ids_scored(cpu_idx, real.ratings.cpu(), c["budget"], c["per_table"])
+    qv = unit(real.ratings)
+    rows = unit(real.ratings)
+
+    def scores(x, sel):        # the rows' cosine scores, sorted, on the selected queries
+        x = x[sel]
+        s = (qv[sel][:, None, :] * rows[x.clamp(min=0).long()]).sum(-1)
+        return torch.sort(torch.where(x >= 0, s, float("-inf")), dim=1).values
+
+    ids_cpu = ids_cpu.to(DEV)
+    differ = (torch.sort(ids, 1).values != torch.sort(ids_cpu, 1).values).any(1)
+    s_card, s_cpu = scores(ids, differ), scores(ids_cpu, differ)
+    fin = torch.isfinite(s_cpu)
+    if not (torch.equal(fin, torch.isfinite(s_card))
+            and torch.allclose(s_card[fin], s_cpu[fin], rtol=1e-5, atol=1e-5)):
+        raise AssertionError("(c) candidate_ids_scored: card and CPU sets differ beyond "
+                             "score ties")
+    log(f"phase 25 (c) candidate_ids_scored (budget {c['budget']}, window "
+        f"{c['per_table']}, f32 slabs {list(pidx.packed.shape)}): {int(differ.sum())} of "
+        f"{ids.shape[0]} sets differ card against CPU, all at equal scores (1e-5)")
+    qb, _ = query_hashes(pidx, qv)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, c["per_table"])
+    k1 = [wide_k1(f"(c) candidate sets, f32 d = 15 (f32 body), q = {qv.shape[0]}",
+                  pidx.packed, s0, sizes, qv, c["per_table"], False)]
+    pidx = pack_index(index, real.ratings, dtype=torch.int8)
+    zero_counts()
+    ids = candidate_ids_scored(pidx, real.ratings, c["budget"], c["per_table"])
+    torch.cuda.synchronize()
+    launches_int8 = read_counts()
+    if (tuple(ids.shape) != (real.ratings.shape[0], c["budget"])
+            or not bool(((ids >= -1) & (ids < real.ratings.shape[0])).all())):
+        raise AssertionError(f"(c) candidate_ids_scored, int8 d = 15: ids {tuple(ids.shape)} "
+                             f"or out of range")
+    wide_launches("(c) candidate_ids_scored, int8 d = 15", launches_int8,
+                  ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    k1.append(wide_k1(f"(c) candidate sets, int8 d = 15 (chunked FFMA body: rows not "
+                      f"16-byte aligned), q = {qv.shape[0]}",
+                      pidx.packed, s0, sizes, qv, c["per_table"], False))
+    del index, pidx, real, s0, sizes
+    torch.cuda.empty_cache()
+    return dict(mae=maes, cv_launches=cv_launches, launches=launches,
+                launches_int8=launches_int8, sets_differ=int(differ.sum()), k1=k1)
+
+
+def wide_s1_tied():
+    """S1 past one launch on tied rows: [R, 40,960] and [R, 131,072] at
+    k = 40 (two levels), [R, 8,192] at k = 2,048 (the radix select): equal
+    to topk_desc bit for bit on the card, and on the CPU on the first rows;
+    timed beside torch.topk and topk_desc, with the profiler's device time."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    out = []
+    S1["quiet"] = True
+    for i, (m, k, R) in enumerate(WIDE["s1"]):
+        v = _s1_tied_rows(R, m, SEED + 260 + i)
+        got, same = _s1_against_plain(v, k)
+        c = min(R, WIDE["s1_cpu_rows"])
+        cpu = topk_desc(v[:c].cpu(), k)
+        sets, orders = _differ(got[1][:c], cpu[1])
+        vbits = torch.equal(got[0][:c].cpu().view(torch.int32), cpu[0].view(torch.int32))
+        if not same or sets or orders or not vbits:
+            raise AssertionError(f"S1 [{R}, {m}] k = {k}: equal to topk_desc on the card "
+                                 f"{same}; card against CPU: {sets} sets, {orders} orders "
+                                 f"differ, values equal {vbits}")
+        e = s1_time(v, k)
+        e["device_ms"] = device_ms(lambda: window_topk(v, k), KERNEL_NAMES["window_topk"])
+        e.update(phase=25, input="tied rows", shape=[R, m, k], max_abs_err=0.0, cpu_rows=c,
+                 sets_differ=sets, order_differs=orders)
+        log(f"phase 25 S1 [{R}, {m}] k = {k}, tied rows: equal to topk_desc bit for bit on "
+            f"the card; {sets} of {c} sets differ card against CPU, {orders} orders; "
+            f"device time of the kernels {e['device_ms']:.3f} ms a call (profiler)")
+        s1_line(25, "tied rows", e)
+        out.append(e)
+        del v, got
+    S1["quiet"] = False
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_launches_of(wide, name):
+    """Phase 25's counted runs' launches of one kernel, by path."""
+    return {"wide cosine LSH": wide["cosine"]["launches"][name],
+            "wide cosine cube": wide["cosine"]["cube"]["launches"][name],
+            "wide euclidean LSH": wide["euclidean"]["launches"][name],
+            "wide candidate sets f32 d = 15": wide["program"]["launches"][name],
+            "wide candidate sets int8 d = 15": wide["program"]["launches_int8"][name]}
+
+
+def phase25(ds):
+    """Wide rows: (a), (b) and (c) above, then S1 on tied rows past one
+    launch.  -> results; each path's launches must show its kernels."""
+    t0 = time.perf_counter()
+    res = dict(cosine=wide_cosine(), euclidean=wide_euclidean(), program=wide_program(ds),
+               s1_tied=wide_s1_tied())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 25 wide rows: {res['seconds']:.1f} s")
     return res
 
 
@@ -2712,7 +3123,6 @@ def main() -> int:
     ivf = phase20(corpus, queries_all, true_all)
     S1["phase"] = 21
     clis = phase21(ds)
-    ds_dir.cleanup()
 
     # ---- 22. the sharded engines, NCCL at world size 1 ----
     S1["phase"] = 22
@@ -2728,6 +3138,13 @@ def main() -> int:
     # ---- 24. S1 at every stage-1 shape of the run, on tied rows ----
     S1["phase"] = 24
     s1_tied = phase24()
+
+    # ---- 25. the paths at the public sets' widths ----
+    S1["phase"] = 25
+    wide = phase25(ds)
+    ds_dir.cleanup()
+    wide_k1 = [wide["cosine"]["k1"], wide["cosine"]["cube"]["k1"],
+               wide["euclidean"]["k1"]] + wide["program"]["k1"]
 
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
@@ -2746,7 +3163,7 @@ def main() -> int:
              replaces="crypto_rec_tpu/ops/pallas/signproj.py:61",
              launches=launches["signproj_bucket_ids"], max_abs_err=k2["max_abs_err"],
              **{key: k2[key] for key in row_keys}, card=CARD,
-             geometries=[k2, k2_l1, program["k2"], cv["k2"]],
+             geometries=[k2, k2_l1, program["k2"], cv["k2"], wide["cosine"]["k2"]],
              path_launches=dict(path_launches("signproj_bucket_ids"),
                                 program=program["launches"]["signproj_bucket_ids"],
                                 cv=cv["launches"]["signproj_bucket_ids"],
@@ -2757,14 +3174,17 @@ def main() -> int:
                                 serve_recommend=clis["recommend"]["launches"][
                                     "signproj_bucket_ids"],
                                 **{f"sharded {m}": sharded[m]["launches"]["signproj_bucket_ids"]
-                                   for m in ("mp1", "mp4")})),
+                                   for m in ("mp1", "mp4")},
+                                **wide_launches_of(wide, "signproj_bucket_ids"))),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
              launches=launches["slab_window_dots"],
-             max_abs_err=max(k1_err, k1_per_row["max_abs_err"]),
+             max_abs_err=max(k1_err, k1_per_row["max_abs_err"],
+                             *(e["max_abs_err"] for e in wide_k1)),
              **{key: k1_main[key] for key in row_keys}, card=CARD,
-             geometries=[k1_main] + k1_geoms + [streamed["k1"], k1_sharded, k1_per_row],
+             geometries=[k1_main] + k1_geoms + [streamed["k1"], k1_sharded, k1_per_row]
+             + wide_k1,
              path_launches=dict(path_launches("slab_window_dots"),
                                 scored_sets=scored["launches"]["slab_window_dots"],
                                 **{f"per-row int8 {m}": r["launches"]["slab_window_dots"]
@@ -2774,7 +3194,8 @@ def main() -> int:
                                 serve_unpacked=nonkernel["serve_unpacked"]["launches"][
                                     "slab_window_dots"],
                                 **{f"sharded {m}": sharded[m]["launches"]["slab_window_dots"]
-                                   for m in ("mp1", "mp4")})),
+                                   for m in ("mp1", "mp4")},
+                                **wide_launches_of(wide, "slab_window_dots"))),
         dict(name="slab_window_dots", route="cuda",
              source="crypto_rec_tpu_torch/csrc/slabtile.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:360",
@@ -2785,9 +3206,9 @@ def main() -> int:
              source="crypto_rec_tpu_torch/csrc/windowtopk.cu",
              replaces="crypto_rec_tpu/ops/pallas/slabscore.py:486",
              launches=launches["window_topk"],
-             max_abs_err=max(e["max_abs_err"] for e in S1["dots"] + s1_tied),
+             max_abs_err=max(e["max_abs_err"] for e in S1["dots"] + s1_tied + wide["s1_tied"]),
              **{key: s1_main.get(key) for key in row_keys}, card=CARD,
-             geometries=S1["dots"] + s1_tied,
+             geometries=S1["dots"] + s1_tied + wide["s1_tied"],
              path_launches=dict(
                  path_launches("window_topk"), phases_6_7=launches67["window_topk"],
                  serving_euclidean=serving["launches"]["window_topk"],
@@ -2797,7 +3218,8 @@ def main() -> int:
                     for m, r in nonkernel["k1_per_row"]["retrieve"].items()},
                  streamed=streamed["launches"]["window_topk"],
                  **{f"sharded {m}": sharded[m]["launches"]["window_topk"]
-                    for m in ("mp1", "mp4")}),
+                    for m in ("mp1", "mp4")},
+                 **wide_launches_of(wide, "window_topk")),
              bodies=S1_BODIES,
              note="S1, the stage-1 selection of K1's dots; no Pallas kernel: it replaces "
                   "the XLA selections jax.lax.approx_max_k / lax.top_k at "
@@ -2853,6 +3275,10 @@ def main() -> int:
     for r in (cv, program):
         r.pop("k1", None)
         r.pop("k2")
+    for r in (wide["cosine"], wide["cosine"]["cube"], wide["euclidean"], wide["program"]):
+        r.pop("k1")
+    wide["cosine"].pop("k2")
+    wide.pop("s1_tied")
     streamed.pop("k1")
     nonkernel["k1_per_row"].pop("k1")
     wall = time.perf_counter() - T_START
@@ -2862,7 +3288,7 @@ def main() -> int:
                       "cv": cv, "scored_sets": scored, "card_vs_cpu": card_vs_cpu,
                       "program_fused": program_fused, "nonkernel_paths": nonkernel,
                       "streamed": streamed, "ivf": ivf, "clis": clis, "sharded": sharded,
-                      "oracle_streamed": oracle_streamed, "ties": ties,
+                      "oracle_streamed": oracle_streamed, "ties": ties, "wide": wide,
                       "s1_shapes": [dict(shape=list(k), phase=p)
                                     for k, p in sorted(S1["shapes"].items())],
                       "wall_s": wall,

@@ -29,6 +29,17 @@
 //   of 8 warps stay resident on an SM; proj ([d, L, K padded to a stride
 //   whose 16-byte groups are odd in number]) sits in shared memory for the
 //   block's life, read as float4 without bank conflicts.
+// - Where all of proj does not fit beside the ring (d = 384 at k = 13,
+//   L = 8: 246 KB), proj streams instead: each ring slot holds the
+//   slice's columns of proj too (4-byte cp.async from the [d, L k]
+//   tensor), so shared memory holds no more of proj at d = 1,536 than at
+//   d = 128, and the tables split into groups on grid.y where a slot's
+//   proj for all of them would not fit two blocks an SM (L = 64 at
+//   k = 13: three groups of 22, each re-reading x from L2).  Any d and L.
+//   Each sum still runs over d in column order, the same as resident.
+//   Streamed, the kernel took 1.13-1.35x the resident time at resident
+//   shapes on an H100 (tools/chip_probes/prev_build_ab.py: proj re-read a
+//   tile, 4-byte copies), so it runs only where resident cannot.
 // - The 16-byte units of a slice row are XOR-swizzled on the row, so 8
 //   rows' same unit hit 8 distinct bank groups.
 // The [n, L*k] projection tensor never leaves the SM.
@@ -51,7 +62,7 @@ int launch(const float* x, const float* proj, int32_t* out, int n, int d,
 
 extern "C" int crt_signproj(const void* x, const void* proj, void* out,
                             int n, int d, int k, int L, void* stream) {
-  if (L < 1 || L > 64 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (L < 1 || d % 4 != 0) return (int)cudaErrorInvalidValue;
   const float* xf = (const float*)x;
   const float* pf = (const float*)proj;
   int32_t* o = (int32_t*)out;

@@ -29,6 +29,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(src_bytes));
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -54,25 +59,36 @@ __device__ __forceinline__ int slice_off(int r, int u) {
   return r * Split<S>::bk + ((u ^ ((r / (8 / U)) & (U - 1))) << 2);
 }
 
-template <int K, int S>
+// Tables [t0, t0 + LG) of every row, t0 = blockIdx.y LG.  kRes (resident):
+// all of proj, [nc kBK][LG][TS] zero-padded, staged once for the block's
+// life, as the design took it where it fits (one group, LG = L).  Else
+// streamed: each slice of x comes with the same columns of the tables'
+// projections, [kBK][LG][TS], in the same ring, so shared memory holds no
+// more of proj than a slice's share whatever d is.  Either way slice c's
+// projections sit at the same offsets, and each sum runs over d in the
+// same order.
+template <int K, int S, bool kRes>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
-                int32_t* __restrict__ out, int n, int d, int L) {
+                int32_t* __restrict__ out, int n, int d, int L, int LG) {
   constexpr int kBK = Split<S>::bk;
   constexpr int kUnits = Split<S>::units;
   constexpr int R = Rows<K>::n;
   constexpr int KP = (K + 3) / 4 * 4;
   constexpr int TS = Stride<K>::n;
   extern __shared__ __align__(16) float smem[];
-  const int G = kUnits / L;            // row groups
+  const int t0 = blockIdx.y * LG;      // the block's first table
+  const int G = kUnits / LG;           // row groups
   const int BM = R * G;                // rows per tile
   const int nc = (d + kBK - 1) / kBK;  // slices per tile, the last zero-padded
-  const int dp = nc * kBK;
-  float* p_s = smem;                   // [dp][L][TS], zero-padded
-  float* x_s = smem + dp * L * TS;     // kStages x [BM][kBK], swizzled
-  for (int i = threadIdx.x; i < dp * L * TS; i += kThreads) {
-    const int j = i % TS, t = (i / TS) % L, k = i / (TS * L);
-    p_s[i] = j < K && k < d ? proj[k * L * K + t * K + j] : 0.f;
+  const int ps_size = kBK * LG * TS;
+  float* x_s = smem;                           // kStages x [BM][kBK], swizzled
+  float* p_s = smem + kStages * BM * kBK;      // [nc or kStages][kBK][LG][TS]
+  if (kRes) {
+    for (int i = threadIdx.x; i < nc * ps_size; i += kThreads) {
+      const int j = i % TS, t = (i / TS) % LG, k = i / (TS * LG);
+      p_s[i] = j < K && k < d ? proj[(size_t)k * L * K + t * K + j] : 0.f;
+    }
   }
 
   const int n_tiles = (n + BM - 1) / BM;
@@ -93,6 +109,16 @@ signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
         const float* src = ok ? x + row * d + c * kBK + u * 4 : x;
         cp_async16(dst + slice_off<S>(r, u), src, ok ? 16 : 0);
       }
+      // streamed: the slice's columns of proj, zero past d and past the
+      // last table; the pad lanes j >= K of each table are never read into
+      // a sum
+      float* pdst = p_s + (s % kStages) * ps_size;
+      for (int i = threadIdx.x; !kRes && i < kBK * LG * K; i += kThreads) {
+        const int j = i % K, t = (i / K) % LG, col = c * kBK + i / (K * LG);
+        const bool ok = col < d && t0 + t < L;
+        const float* src = ok ? proj + ((size_t)col * L + t0 + t) * K + j : proj;
+        cp_async4(pdst + ((i / (K * LG)) * LG + t) * TS + j, src, ok ? 4 : 0);
+      }
     }
     cp_async_commit();
   };
@@ -101,8 +127,8 @@ signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
   const int lane = threadIdx.x % 32;
   const int split = lane / (32 / S);
   const int unit = (threadIdx.x / 32) * (32 / S) + lane % (32 / S);
-  const int g = unit / L, t = unit % L;
-  const bool active = g < G;
+  const int g = unit / LG, t = unit % LG;
+  const bool active = g < G && t0 + t < L;
   float acc[R][K];
 #pragma unroll
   for (int u = 0; u < R; ++u)
@@ -118,6 +144,7 @@ signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
     const int c = s % nc;
     if (active) {
       const float* xs = x_s + (s % kStages) * BM * kBK;
+      const float* ps = p_s + (kRes ? c : s % kStages) * ps_size;
 #pragma unroll
       for (int h = 0; h < Split<S>::h; ++h) {   // this split's columns, 4 at a time
         float4 xv[R];
@@ -128,7 +155,7 @@ signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const float4* pr = reinterpret_cast<const float4*>(
-              p_s + ((c * kBK + (Split<S>::h * split + h) * 4 + kk) * L + t) * TS);
+              ps + (((Split<S>::h * split + h) * 4 + kk) * LG + t) * TS);
           float pv[KP];
 #pragma unroll
           for (int v = 0; v < KP / 4; ++v) {
@@ -162,7 +189,7 @@ signproj_kernel(const float* __restrict__ x, const float* __restrict__ proj,
           int32_t id = 0;
 #pragma unroll
           for (int j = 0; j < K; ++j) id |= (acc[u][j] >= 0.f ? 1 : 0) << (K - 1 - j);
-          out[row * L + t] = id;
+          out[row * L + t0 + t] = id;
         }
 #pragma unroll
         for (int j = 0; j < K; ++j) acc[u][j] = 0.f;
@@ -183,24 +210,69 @@ inline int num_sms() {
   return sms;
 }
 
+inline int max_smem() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (bytes <= 0) bytes = 232448;
+  }
+  return bytes;
+}
+
+// Streamed, a block's shared memory is the ring's x slices and proj slices
+// for LG tables.  Tables are split into ceil(L / LG) groups on grid.y, LG
+// the largest ceil(L / groups) whose ring fits kSmemBudget (two blocks an
+// SM).
+constexpr size_t kSmemBudget = 110 * 1024;
+
+template <int K, int S>
+size_t ring_bytes(int lg) {
+  return sizeof(float) * (size_t)kStages * Split<S>::bk *
+         ((size_t)Rows<K>::n * (Split<S>::units / lg) + (size_t)lg * Stride<K>::n);
+}
+
+template <int K, int S, bool kRes>
+int launch_kernel(const float* x, const float* proj, int32_t* out, int n, int d, int L,
+                  int LG, int groups, size_t smem, cudaStream_t stream) {
+  const int BM = Rows<K>::n * (Split<S>::units / LG);
+  cudaError_t err = cudaFuncSetAttribute(
+      signproj_kernel<K, S, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = ((long long)n + BM - 1) / BM;
+  long long cap = (long long)kBlocksPerSM * num_sms() / groups;
+  if (cap < 1) cap = 1;
+  const int blocks = (int)(n_tiles < cap ? n_tiles : cap);
+  if (blocks > 0)
+    signproj_kernel<K, S, kRes><<<dim3(blocks, groups), kThreads, smem, stream>>>(
+        x, proj, out, n, d, L, LG);
+  return (int)cudaGetLastError();
+}
+
+// proj resident where all of it fits beside the ring (the design's shapes
+// before the streamed form; one block an SM where it exceeds half the SM),
+// streamed in groups otherwise
 template <int K, int S>
 int launch_split(const float* x, const float* proj, int32_t* out, int n, int d,
            int L, cudaStream_t stream) {
   constexpr int kBK = Split<S>::bk;
-  const int BM = Rows<K>::n * (Split<S>::units / L);
-  if (BM == 0) return (int)cudaErrorInvalidValue;
-  const size_t dp = (size_t)(d + kBK - 1) / kBK * kBK;
-  const size_t smem = sizeof(float) *
-      (dp * L * Stride<K>::n + (size_t)kStages * BM * kBK);
-  cudaError_t err = cudaFuncSetAttribute(
-      signproj_kernel<K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = ((long long)n + BM - 1) / BM;
-  const long long cap = (long long)kBlocksPerSM * num_sms();
-  const int blocks = (int)(n_tiles < cap ? n_tiles : cap);
-  if (blocks > 0)
-    signproj_kernel<K, S><<<blocks, kThreads, smem, stream>>>(x, proj, out, n, d, L);
-  return (int)cudaGetLastError();
+  if (L <= Split<S>::units) {
+    const size_t dp = (size_t)(d + kBK - 1) / kBK * kBK;
+    const size_t BM = (size_t)Rows<K>::n * (Split<S>::units / L);
+    const size_t smem = sizeof(float) * (dp * L * Stride<K>::n + (size_t)kStages * BM * kBK);
+    if (smem <= (size_t)max_smem())
+      return launch_kernel<K, S, true>(x, proj, out, n, d, L, L, 1, smem, stream);
+  }
+  int groups = 1, LG = L;
+  while (LG > Split<S>::units || ring_bytes<K, S>(LG) > kSmemBudget) {
+    if (LG == 1) return (int)cudaErrorInvalidValue;
+    ++groups;
+    LG = (L + groups - 1) / groups;
+  }
+  groups = (L + LG - 1) / LG;
+  return launch_kernel<K, S, false>(x, proj, out, n, d, L, LG, groups, ring_bytes<K, S>(LG),
+                                    stream);
 }
 
 // the S = 4 launcher, instantiated for k = 1..30 in signproj_wide.cu

@@ -22,36 +22,44 @@
 // Design:
 // - The wrapper (ops/kernels/slabscore.py, plain torch on the device)
 //   sorts the pairs by row0, cuts the flat slab into tiles of RT rows (256
-//   at d <= 128, 128 at d = 256: the tile's bf16 rows take 64 KB) and
-//   lists work items: a tile and at most M = 32 of the sorted pairs whose
-//   windows meet it (a contiguous range), so a hot tile is spread over
-//   many blocks.
-// - A block takes one item: it stages the tile's rows in shared memory as
-//   bf16 (int8 upcast in registers, bf16 copied by cp.async) and its
-//   pairs' f32 queries, split in registers into three bf16 terms q = hi +
-//   mid + lo; int8 and bf16 slab values are exact in bf16, so the three
-//   products summed in f32 keep f32 accuracy (two terms leave ~2^-16
-//   relative).  The pairs' fields (pair id, row0, head, head + size)
-//   come pre-gathered in sorted order, so a block's loads take two
-//   rounds: the tile's rows, and beside them each pair's fields and then
-//   its query terms.
-// - 8 warps compute the M x RT dots with mma.sync m16n8k16 bf16 (f32
-//   accumulate), operands read by ldmatrix from rows whose 16-byte chunks
-//   are XOR-swizzled on the row's low 3 bits (conflict-free).  Each
-//   16-wide slice of d is summed from zero by the tensor core and added to
-//   the running dot in f32: the tensor core's f32 accumulation truncates
-//   relative to its accumulator, so feeding it the running total costs
-//   accuracy where dots cancel (augmented int8 rows, dots ~10^3).  A warp
-//   skips the m16 tiles past the item's pairs.
+//   on the tensor cores, 32 on the FFMA body below) and lists work items: a
+//   tile and at most M = 32 of the sorted pairs whose windows meet it (a
+//   contiguous range), so a hot tile is spread over many blocks.
+// - A block takes one item and loops over d as a GEMM loops over K: it
+//   stages the tile's rows as bf16 (int8 upcast in registers, bf16 copied
+//   by cp.async) and its pairs' f32 queries, split in registers into three
+//   bf16 terms q = hi + mid + lo, one 64-wide d-chunk at a time in two
+//   buffers (88 KB a block whatever d, so two blocks share an SM), the next
+//   chunk's loads in flight while the tensor cores work on this one.  int8
+//   and bf16 slab values are exact in bf16, so the three products summed in
+//   f32 keep f32 accuracy (two terms leave ~2^-16 relative).  The pairs'
+//   fields (pair id, row0, head, head + size) come pre-gathered in sorted
+//   order.  Rows must be 16-byte aligned (int8 d % 16 == 0, bf16 d % 8 ==
+//   0); the staged chunk rows are 128 bytes, so `swz` needs no whole row.
+// - 8 warps, side by side along the tile's rows, compute the M x RT dots
+//   with mma.sync m16n8k16 bf16 (f32 accumulate), operands read by
+//   ldmatrix from rows whose 16-byte chunks are XOR-swizzled on the row's
+//   low 3 bits (conflict-free).  Each 16-wide slice of d is summed from
+//   zero by the tensor core and added to the running dot in f32, which
+//   stays in registers across chunks: the tensor core's f32 accumulation
+//   truncates relative to its accumulator, so feeding it the running total
+//   costs accuracy where dots cancel (augmented int8 rows, dots ~10^3).
+//   The slices run in d order whatever the chunk width, so the dots equal
+//   one pass over whole rows, bit for bit.  A warp skips the m16 tiles past
+//   the item's pairs.
 // - The epilogue stages the dots in shared memory and writes, for each
 //   pair, the lanes tile_row - row0[p] that fall in [0, win): one
 //   contiguous run of dots[p], a warp's 32 lanes a whole line.  Every
 //   (pair, lane) belongs to exactly one tile and one item, so each is
 //   written once.
 // - f32 slabs are not exact in bf16: they take f32 FFMA in the same item
-//   schedule (RT = 32, M = 32), a simple loop over shared memory.
-// - Offsets into dots are 64-bit: q T win exceeds 2^31 on the euclidean
-//   MultiCube.
+//   schedule (RT = 32, M = 32), a simple loop over shared memory, whole
+//   rows up to d = 256 and d-chunks of 256 past it (the FMAs run in d
+//   order either way).  The chunked body also takes int8 and bf16 rows
+//   that are not 16-byte aligned, element by element; its speed is not
+//   the point.
+// - Offsets into dots and the slab are 64-bit: q T win exceeds 2^31 on
+//   the euclidean MultiCube, and 1M rows x 8 tables x 1,536 B is 12.6 GB.
 // - The per-row scale (per-row int8 packs) is applied where each lane is
 //   stored, the one place its absolute slab row is known: one 4-byte load
 //   beside each store (a tile's 1 KB of scales, cached), and the dots are
@@ -67,8 +75,10 @@ using namespace tilemma;
 
 constexpr int kThreads = 256;     // 8 warps: 2 along the pairs, 4 along the rows
 constexpr int kM = 32;            // pairs per item (tensor-core path)
-constexpr int kMaxD = 256;
-constexpr int kF32RT = 32, kF32M = 32;
+constexpr int kDC = 64;           // d-chunk of the tensor-core body (bf16 values)
+constexpr int kRT = 256;          // tile rows of the tensor-core body
+constexpr int kMT = kM / 16;      // m16 tiles of pairs a warp
+constexpr int kF32RT = 32, kF32M = 32, kF32DC = 256;
 
 // the sorted pairs' fields in Args::meta, [kMeta][P] int32; the query of
 // pair p is p / T
@@ -118,137 +128,82 @@ __device__ __forceinline__ Item load_item(const Args& a, int i) {
   return it;
 }
 
-// ---- tensor-core path: int8 / bf16 slabs ----
-//
-// One block an item; two blocks share an SM (88 KB of shared memory at
-// d <= 128, 113 KB at d = 256), so one block's loads overlap the other's
-// tensor-core work.  MT = 2 (d <= 128): tiles of 256 rows, the 8 warps
-// side by side along the rows, each with both m16 tiles of the 32 pairs.
-// MT = 1 (d = 256): tiles of 128 rows, warps 2 x 4 (pairs x rows).  Either
-// way a warp owns (16 MT) x 32 of the output.
-template <int DT, int MT>
-__global__ void __launch_bounds__(kThreads, 2)
-tile_dots_mma(Args a) {
-  constexpr int M = kM;
-  constexpr int kRT = 128 * MT;
-  constexpr int kLd = DT == kI8 ? kRT * (MT == 2 ? 128 : 256) / 16 / kThreads : 1;
-  const Item it = load_item(a, blockIdx.x);
-  const int cnt = it.cnt;
-  if (cnt == 0) return;
-  const int tile0 = it.tile * kRT;
-  const int d = a.d, cpr = d / 8, c16 = d / 16;   // 16-byte chunks: bf16, int8
-
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [kRT][d]
-  __nv_bfloat16* a_s = b_s + kRT * d;                                 // [3][M][d]
-  int (*s_meta)[64] = reinterpret_cast<int (*)[64]>(a_s + 3 * M * d); // [kMeta][64]
-  const float* qf = static_cast<const float*>(a.queries);
-
-  // the tile's rows, zero past the slab's end: int8 loads issued first,
-  // upcast exactly once the pairs' loads are on their way
-  uint4 v[kLd];
-  if (DT == kI8) {
-#pragma unroll
-    for (int j = 0; j < kLd; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / c16;
-      v[j] = make_uint4(0, 0, 0, 0);
-      if (i < kRT * c16 && tile0 + r < a.n_rows)
-        v[j] = __ldg(reinterpret_cast<const uint4*>(a.slab + (size_t)(tile0 + r) * d) +
-                     i % c16);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRT * cpr; i += kThreads) {
-      const int r = i / cpr, c = i % cpr;
-      const bool ok = tile0 + r < a.n_rows;
-      const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + c * 8) * 2 : a.slab;
-      cp_async16(b_s + swz(r, c, d), src, ok ? 16 : 0);
-    }
-  }
-  // pair slot m = threadIdx.x / 8 and its 8 lanes: the slot's fields, and
-  // as soon as its pair id lands the query, split into its three bf16
-  // terms, while the tile's rows are still on their way; rows past cnt are
-  // never read into a written dot
-  static_assert(kThreads / 8 == M, "one 8-lane group a pair slot");
+// pair slot m = threadIdx.x / 8 and its 8 lanes: the slot's fields to
+// s_meta; -> its pair id (0 past the item's pairs)
+__device__ __forceinline__ int stage_meta(const Args& a, const Item& it,
+                                          int (*s_meta)[64]) {
+  static_assert(kThreads / 8 == kM, "one 8-lane group a pair slot");
   const int slot = threadIdx.x / 8, sub = threadIdx.x % 8;
-  if (slot < cnt) {
-    const int p = __ldg(a.meta + (size_t)kPair * a.P + it.lo + slot);
-    if (sub < (a.mask ? kMeta : kHead))
-      s_meta[sub][slot] = sub == kPair ? p : __ldg(a.meta + (size_t)sub * a.P + it.lo + slot);
-    const float4* q4 = reinterpret_cast<const float4*>(qf + (size_t)(p / a.T) * d);
-    for (int c = sub; c < cpr; c += 8) {           // 8 elements a chunk
-      const float4 u = __ldg(q4 + 2 * c), w = __ldg(q4 + 2 * c + 1);
-      const float x[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
-      uint32_t t[3][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float h[2][3];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) split3(x[2 * e + k], h[k]);
-#pragma unroll
-        for (int term = 0; term < 3; ++term) t[term][e] = bf16x2(h[0][term], h[1][term]);
-      }
-#pragma unroll
-      for (int term = 0; term < 3; ++term)
-        *reinterpret_cast<uint4*>(a_s + term * M * d + swz(slot, c, d)) =
-            make_uint4(t[term][0], t[term][1], t[term][2], t[term][3]);
-    }
-  }
-  if (DT == kI8) {
-#pragma unroll
-    for (int j = 0; j < kLd; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      if (i >= kRT * c16) break;
-      const int r = i / c16, c = i % c16;
-      const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-      uint32_t o[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        o[2 * e] = bf16x2(i8(w[e], 0), i8(w[e], 1));
-        o[2 * e + 1] = bf16x2(i8(w[e], 2), i8(w[e], 3));
-      }
-      *reinterpret_cast<uint4*>(b_s + swz(r, 2 * c, d)) = make_uint4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<uint4*>(b_s + swz(r, 2 * c + 1, d)) =
-          make_uint4(o[4], o[5], o[6], o[7]);
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  if (slot >= it.cnt) return 0;
+  const int p = __ldg(a.meta + (size_t)kPair * a.P + it.lo + slot);
+  if (sub < (a.mask ? kMeta : kHead))
+    s_meta[sub][slot] = sub == kPair ? p : __ldg(a.meta + (size_t)sub * a.P + it.lo + slot);
+  return p;
+}
 
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int m_base = MT == 2 ? 0 : (warp / 4) * 16;
-  const int n_base = MT == 2 ? warp * 32 : (warp % 4) * 32;
-  const int mt_live = max(0, min(MT, (cnt - m_base + 15) / 16));
+// 8 query elements x[0, 8), split into their three bf16 terms, to 16-byte
+// chunk c of pair slot `slot` in each term's [kM][ld] block
+__device__ __forceinline__ void store_terms(__nv_bfloat16* a_s, int ld, int slot, int c,
+                                            float4 u, float4 w) {
+  const float x[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+  uint32_t t[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float h[2][3];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) split3(x[2 * e + k], h[k]);
+#pragma unroll
+    for (int term = 0; term < 3; ++term) t[term][e] = bf16x2(h[0][term], h[1][term]);
+  }
+#pragma unroll
+  for (int term = 0; term < 3; ++term)
+    *reinterpret_cast<uint4*>(a_s + term * kM * ld + swz(slot, c, ld)) =
+        make_uint4(t[term][0], t[term][1], t[term][2], t[term][3]);
+}
+
+// 16 int8 values (one 16-byte unit) upcast exactly to bf16, to 16-byte
+// chunks c and c + 1 of row r of a [rows][ld] bf16 block
+__device__ __forceinline__ void store_i8_unit(__nv_bfloat16* b_s, int ld, int r, int c,
+                                              uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    o[2 * e] = bf16x2(i8(w[e], 0), i8(w[e], 1));
+    o[2 * e + 1] = bf16x2(i8(w[e], 2), i8(w[e], 3));
+  }
+  *reinterpret_cast<uint4*>(b_s + swz(r, c, ld)) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(b_s + swz(r, c + 1, ld)) = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// The 16-wide slices [0, ks) of staged rows b_s [rows][ld] against the
+// query terms a_s [3][kM][ld], onto the warp's running sums.  Each slice's
+// 16 products of each term start from zero (hi, then mid and lo onto it)
+// and join the running sums with an f32 add: the tensor core's
+// accumulation error is relative to the slice's sum, not to the running
+// total's.
+__device__ __forceinline__ void mma_slices(float (&acc)[kMT][4][4], const __nv_bfloat16* b_s,
+                                           const __nv_bfloat16* a_s, int ld, int ks,
+                                           int mt_live, int n_base, int l) {
   const int mi = l >> 3, rr = l & 7;
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  for (int kc = 0; mt_live > 0 && kc < d / 16; ++kc) {
+  for (int kc = 0; kc < ks; ++kc) {
     uint32_t b[4][2];
 #pragma unroll
     for (int nb = 0; nb < 4; nb += 2) {
       uint32_t r4[4];
       const int row = n_base + nb * 8 + rr + (mi >> 1) * 8;
-      ldmatrix_x4(r4, b_s + swz(row, 2 * kc + (mi & 1), d));
+      ldmatrix_x4(r4, b_s + swz(row, 2 * kc + (mi & 1), ld));
       b[nb][0] = r4[0]; b[nb][1] = r4[1]; b[nb + 1][0] = r4[2]; b[nb + 1][1] = r4[3];
     }
-    // this slice's 16 products of each term start from zero (hi, then mid
-    // and lo onto it) and join the running sums with an f32 add: the
-    // tensor core's accumulation error is relative to the slice's sum, not
-    // to the running total's
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < kMT; ++mt) {
       if (mt >= mt_live) break;
-      const int arow = m_base + mt * 16 + rr + (mi & 1) * 8;
+      const int arow = mt * 16 + rr + (mi & 1) * 8;
       float part[4][4];
 #pragma unroll
       for (int term = 0; term < 3; ++term) {
         uint32_t af[4];
-        ldmatrix_x4(af, a_s + term * M * d + swz(arow, 2 * kc + (mi >> 1), d));
+        ldmatrix_x4(af, a_s + term * kM * ld + swz(arow, 2 * kc + (mi >> 1), ld));
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           if (term == 0) mma_bf16_zero(part[nt], af, b[nt][0], b[nt][1]);
@@ -261,20 +216,24 @@ tile_dots_mma(Args a) {
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
     }
   }
+}
 
-  // the epilogue goes through shared memory (the tile's space, free once
-  // every warp is done with it), so each pair's run of lanes is written
-  // with whole-line stores rather than 8-byte pieces of 8 rows
-  constexpr int OS = kRT + 8;          // row stride: float2 writes conflict-free
-  float* o_s = reinterpret_cast<float*>(b_s);                         // [M][OS]
+// The epilogue goes through shared memory o_s (free once every warp is
+// done with the staged rows), so each pair's run of lanes is written with
+// whole-line stores rather than 8-byte pieces of 8 rows.
+__device__ __forceinline__ void store_dots(const Args& a, const int (*s_meta)[64],
+                                           const float (&acc)[kMT][4][4], float* o_s,
+                                           int tile0, int cnt, int mt_live, int n_base) {
+  constexpr int OS = kRT + 8;           // row stride: float2 writes conflict-free
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   __syncthreads();
   const int g = l >> 2, tig = l & 3;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int mt = 0; mt < kMT; ++mt) {
     if (mt >= mt_live) break;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = m_base + mt * 16 + g + half * 8;
+      const int m = mt * 16 + g + half * 8;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
         *reinterpret_cast<float2*>(o_s + m * OS + n_base + nt * 8 + 2 * tig) =
@@ -293,7 +252,105 @@ tile_dots_mma(Args a) {
   }
 }
 
-// ---- f32 slabs: FFMA over the same item schedule, one block an item ----
+// ---- tensor-core path: int8 / bf16 slabs of any 16-byte aligned width ----
+//
+// Tiles of 256 rows, each warp 32 of them against both m16 tiles of the 32
+// pairs; d in chunks of kDC = 64, two stage buffers of [256][64] rows and
+// [3][32][64] query terms (44 KB each).  Chunk c + 1's loads are issued before chunk c's
+// products and stored after them, so one barrier a chunk separates the
+// buffers' writers from their readers.  Columns past d are zero (rows by
+// cp.async's zero fill or a zero register, queries as zero terms); whole
+// slices past d are skipped.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 2)
+tile_dots_mma(Args a) {
+  constexpr int kStage = (kRT + 3 * kM) * kDC;            // bf16 values a stage
+  constexpr int kUnits = DT == kI8 ? kRT * kDC / 16 / kThreads   // int8 16-byte units
+                                   : kRT * kDC / 8 / kThreads;   // bf16 16-byte chunks
+  const Item it = load_item(a, blockIdx.x);
+  const int cnt = it.cnt;
+  if (cnt == 0) return;
+  const int tile0 = it.tile * kRT;
+  const int d = a.d, nch = (d + kDC - 1) / kDC;
+
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kStage]
+  int (*s_meta)[64] = reinterpret_cast<int (*)[64]>(stage + 2 * kStage);
+  const int p = stage_meta(a, it, s_meta);
+  const int slot = threadIdx.x / 8, sub = threadIdx.x % 8;
+  const bool q_live = slot < cnt;
+  const float* qrow = a.queries + (size_t)(p / a.T) * d;
+
+  uint4 v[DT == kI8 ? kUnits : 1];
+  float4 qu = make_float4(0.f, 0.f, 0.f, 0.f), qw = qu;
+  // chunk c's loads: int8 rows and the query into registers, bf16 rows by
+  // cp.async straight into buffer c & 1
+  auto load = [&](int c) {
+    __nv_bfloat16* b_s = stage + (c & 1) * kStage;
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      if constexpr (DT == kI8) {
+        const int r = i >> 2, col = c * kDC + (i & 3) * 16;
+        v[j] = make_uint4(0, 0, 0, 0);
+        if (tile0 + r < a.n_rows && col < d)
+          v[j] = __ldg(reinterpret_cast<const uint4*>(a.slab + (size_t)(tile0 + r) * d + col));
+      } else {
+        const int r = i >> 3, ch = i & 7, col = c * kDC + ch * 8;
+        const bool ok = tile0 + r < a.n_rows && col < d;
+        const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + col) * 2 : a.slab;
+        cp_async16(b_s + swz(r, ch, kDC), src, ok ? 16 : 0);
+      }
+    }
+    const int col = c * kDC + sub * 8;
+    if (q_live && col < d) {
+      qu = __ldg(reinterpret_cast<const float4*>(qrow + col));
+      qw = __ldg(reinterpret_cast<const float4*>(qrow + col) + 1);
+    } else {
+      qu = qw = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // ... and their stores to buffer c & 1
+  auto store = [&](int c) {
+    __nv_bfloat16* b_s = stage + (c & 1) * kStage;
+    if constexpr (DT == kI8) {
+#pragma unroll
+      for (int j = 0; j < kUnits; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        store_i8_unit(b_s, kDC, i >> 2, 2 * (i & 3), v[j]);
+      }
+    }
+    if (q_live) store_terms(b_s + kRT * kDC, kDC, slot, sub, qu, qw);
+  };
+
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int n_base = warp * 32;
+  const int mt_live = min(kMT, (cnt + 15) / 16);
+  float acc[kMT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  load(0);
+  store(0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) load(c + 1);
+    const __nv_bfloat16* b_s = stage + (c & 1) * kStage;
+    const int ks = min(kDC / 16, (d - c * kDC + 15) / 16);
+    mma_slices(acc, b_s, b_s + kRT * kDC, kDC, ks, mt_live, n_base, l);
+    if (c + 1 < nch) store(c + 1);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  store_dots(a, s_meta, acc, reinterpret_cast<float*>(stage), tile0, cnt, mt_live, n_base);
+}
+
+// ---- f32 slabs at d <= 256: FFMA over the same item schedule, one block an
+// item, whole rows staged ----
 __global__ void __launch_bounds__(kThreads)
 tile_dots_f32(Args a) {
   const Item it = load_item(a, blockIdx.x);
@@ -333,21 +390,85 @@ tile_dots_f32(Args a) {
   for (int j = 0; j < 4; ++j) put(a, s_meta, m, tile0 + n0 + 8 * j, acc[j]);
 }
 
-template <int DT, int MT>
-int launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)(128 * MT + 3 * kM) * a.d * 2 + kMeta * 64 * sizeof(int);
+// ---- f32 slabs past d = 256, and int8 / bf16 rows that are not 16-byte
+// aligned: the body above, d in chunks of kF32DC, each element upcast as
+// it is staged ----
+template <int DT>
+__global__ void __launch_bounds__(kThreads)
+tile_dots_ffma(Args a) {
+  constexpr int kBytes = DT == kF32 ? 4 : DT == kBF16 ? 2 : 1;
+  const Item it = load_item(a, blockIdx.x);
+  const int cnt = it.cnt;
+  if (cnt == 0) return;
+  const int tile0 = it.tile * kF32RT;
+  const int d = a.d, dc = min(d, kF32DC), ds = dc + 1;   // odd stride: rows on distinct banks
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* b_s = reinterpret_cast<float*>(smem_raw);   // [kF32RT][dc + 1]
+  float* q_s = b_s + kF32RT * ds;                    // [kF32M][dc + 1]
+  int (*s_meta)[64] = reinterpret_cast<int (*)[64]>(q_s + kF32M * ds);
+  if ((int)threadIdx.x < cnt) {
+    for (int f = 0; f < (a.mask ? kMeta : kHead); ++f)
+      s_meta[f][threadIdx.x] = a.meta[(size_t)f * a.P + it.lo + threadIdx.x];
+  }
+  __syncthreads();
+  const int m = threadIdx.x / 8, n0 = threadIdx.x % 8;   // 4 rows n0 + 8 j each
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < d; c0 += dc) {
+    const int w = min(dc, d - c0);
+    if (c0 > 0) __syncthreads();                   // the last chunk's reads are done
+    for (int i = threadIdx.x; i < kF32RT * w; i += kThreads) {
+      const int r = i / w, k = i % w;
+      b_s[r * ds + k] = tile0 + r < a.n_rows
+          ? element<DT>(a.slab + (size_t)(tile0 + r) * d * kBytes, c0 + k) : 0.f;
+    }
+    for (int i = threadIdx.x; i < kF32M * w; i += kThreads) {
+      const int mm = i / w, k = i % w;
+      q_s[mm * ds + k] = mm < cnt
+          ? a.queries[(size_t)(s_meta[kPair][mm] / a.T) * d + c0 + k] : 0.f;
+    }
+    __syncthreads();
+    if (m < cnt) {
+      for (int k = 0; k < w; ++k) {
+        const float qv = q_s[m * ds + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = fmaf(b_s[(n0 + 8 * j) * ds + k], qv, acc[j]);
+      }
+    }
+  }
+  if (m >= cnt) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) put(a, s_meta, m, tile0 + n0 + 8 * j, acc[j]);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      tile_dots_mma<DT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tile_dots_mma<DT, MT><<<a.n_items, kThreads, smem, stream>>>(a);
+  kernel<<<a.n_items, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * (kRT + 3 * kM) * kDC * 2 + kMeta * 64 * sizeof(int);
+  return launch(tile_dots_mma<DT>, a, smem, stream);
+}
+
+template <int DT>
+int launch_ffma(const Args& a, cudaStream_t stream) {
+  const int dc = a.d < kF32DC ? a.d : kF32DC;
+  const size_t smem = (size_t)(kF32RT + kF32M) * (dc + 1) * 4 + kMeta * 64 * sizeof(int);
+  if (DT == kF32 && a.d <= kF32DC) return launch(tile_dots_f32, a, smem, stream);
+  return launch(tile_dots_ffma<DT>, a, smem, stream);
 }
 
 }  // namespace
 
-// rt / m: the tile rows and pairs per item the wrapper's work list used;
-// they must be this kernel's (int8 / bf16: 256 rows at d <= 128, 128 at
-// d = 256, 32 pairs; f32: 32 and 32).  scale: f32 [n_rows] or null.
+// rt / m: the tile rows and pairs per item the wrapper's work list used
+// (`tile_shape` in ops/kernels/slabscore.py); they must be this kernel's:
+// f32 slabs, and int8 / bf16 rows that are not 16-byte aligned, 32 and 32
+// (FFMA); any other int8 / bf16 width 256 and 32 (tensor cores).  scale: f32 [n_rows] or null.
 extern "C" int crt_slab_tile_dots(const void* slab, const void* queries,
                                   const void* scale,
                                   const void* meta, const void* item_tile,
@@ -362,18 +483,14 @@ extern "C" int crt_slab_tile_dots(const void* slab, const void* queries,
          n_items, P, T, win, d, n_rows, mask};
   cudaStream_t s = (cudaStream_t)stream;
   if (n_items <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    if (d % 4 || rt != kF32RT || m != kF32M) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(kF32RT + kF32M) * (d + 1) * 4 + kMeta * 64 * sizeof(int);
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_dots_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tile_dots_f32<<<n_items, kThreads, smem, s>>>(a);
-    return (int)cudaGetLastError();
+  if (d <= 0 || (dtype != kF32 && dtype != kBF16 && dtype != kI8))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = dtype == kI8 ? d % 16 == 0 : d % 8 == 0;
+  if (dtype == kF32 || !aligned) {
+    if (rt != kF32RT || m != kF32M) return (int)cudaErrorInvalidValue;
+    if (dtype == kF32) return launch_ffma<kF32>(a, s);
+    return dtype == kBF16 ? launch_ffma<kBF16>(a, s) : launch_ffma<kI8>(a, s);
   }
-  if (d % 64 || rt != (d <= 128 ? 256 : 128) || m != kM) return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16) return d <= 128 ? launch_mma<kBF16, 2>(a, s) : launch_mma<kBF16, 1>(a, s);
-  if (dtype == kI8) return d <= 128 ? launch_mma<kI8, 2>(a, s) : launch_mma<kI8, 1>(a, s);
-  return (int)cudaErrorInvalidValue;
+  if (rt != kRT || m != kM) return (int)cudaErrorInvalidValue;
+  return dtype == kBF16 ? launch_mma<kBF16>(a, s) : launch_mma<kI8>(a, s);
 }

@@ -57,6 +57,17 @@
 // registers (index j * NT + t), CAP max(128, 2 k), barriers only between
 // the steps above and one per NT indices scanned on the tie path.
 //
+// Past those shapes (the JAX selections take any 1 <= k <= m):
+// - m > 32,768, k <= 1,024: two levels, both here.  Block rows run on each
+//   32,768-lane segment of a row (grid.y), and the wrapper selects again
+//   over the segments' winners laid end to end, mapping the positions
+//   back, until one segment is left.  The segments are in index order and
+//   each one's winners come out by (value desc, index asc), so among equal
+//   values the second level's lane order is the index order: topk_desc's
+//   answer.
+// - k > 1,024: radix_rows below, a radix select of each row's threshold,
+//   the winners' keys sorted in global scratch.
+//
 // Its times beside the previous design's, torch.topk's and the bound:
 // tools/chip_probes/s1_designs.py and chip_smoke.py phase 24 (PERF.md).
 
@@ -166,9 +177,10 @@ __device__ __forceinline__ u32 count_ge(const u32 (&img)[PER], u32 x) {
 // Each candidate's rank among the n keys in buf (unique, so the ranks are
 // 0 .. n - 1), counted by the threads first, first + step, ...; the k of
 // rank < k are written at their rank, each value as the row holds it.
+// base: added to each index written (a segment's first lane in its row).
 __device__ __forceinline__ void write_ranked(const u64* buf, int n, int k, int first, int step,
                                              const float* src, float* out_v,
-                                             long long* out_i) {
+                                             long long* out_i, long long base = 0) {
   for (int e = first; e < n; e += step) {
     const u64 key = buf[e];
     int rank = 0;
@@ -176,7 +188,7 @@ __device__ __forceinline__ void write_ranked(const u64* buf, int n, int k, int f
     if (rank < k) {
       const int i = key_index(key);
       out_v[rank] = __ldg(src + i);
-      out_i[rank] = i;
+      out_i[rank] = base + i;
     }
   }
 }
@@ -300,19 +312,25 @@ size_t block_smem(int k) {
   return (size_t)block_cap(k) * 8 + (size_t)(NT / 32) * (32 + 1 + 3) * 4;
 }
 
+// One block a row segment: row blockIdx.x, lanes [s seg, s seg + seg) of
+// its m_row for s = blockIdx.y; its min(k_all, length) winners go to
+// out[row, s k_all ...] (rows of ldo), indices in the whole row.  A row of
+// m <= kMaxM is one segment (seg = m, ldo = k).
 template <int NT, int PER>
 __global__ void __launch_bounds__(NT)
 block_rows(const float* __restrict__ values, float* __restrict__ out_v,
-           long long* __restrict__ out_i, int m, int k) {
+           long long* __restrict__ out_i, int m_row, int k_all, int seg, int ldo) {
   constexpr int NW = NT / 32;
   extern __shared__ u64 smem[];
-  const int cap = block_cap(k);
+  const int cap = block_cap(k_all);
+  const long long base = (long long)blockIdx.y * seg;
+  const int m = min(seg, m_row - (int)base), k = min(k_all, m);
   u64* buf = smem;                      // [cap] candidate keys
   u32* lists = (u32*)(buf + cap);       // [NW][32] each warp's lane maxima, descending
   u32* bnd = lists + NW * 32;           // [NW] the bound of c = warp + 1 warps
   u32* red = bnd + NW;                  // [3][NW] warp sums: 0-1 by step parity, 2 scans
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const float* src = values + (size_t)blockIdx.x * m;
+  const float* src = values + (size_t)blockIdx.x * m_row + base;
 
   u32 img[PER];
   u32 mx = 0u;
@@ -387,8 +405,8 @@ block_rows(const float* __restrict__ values, float* __restrict__ out_v,
     }
   }
   __syncthreads();
-  write_ranked(buf, n, k, t, NT, src, out_v + (size_t)blockIdx.x * k,
-               out_i + (size_t)blockIdx.x * k);
+  const size_t out0 = (size_t)blockIdx.x * ldo + (size_t)blockIdx.y * k_all;
+  write_ranked(buf, n, k, t, NT, src, out_v + out0, out_i + out0, base);
 }
 
 template <int PER>
@@ -402,22 +420,124 @@ int launch_warp(const float* v, float* ov, long long* oi, int R, int m, int k,
   return (int)cudaGetLastError();
 }
 
+// segs segments of seg lanes a row (1 and m for a whole row), out rows of ldo
 template <int NT, int PER>
 int launch_block(const float* v, float* ov, long long* oi, int R, int m, int k,
-                 cudaStream_t s) {
+                 cudaStream_t s, int segs = 1, int seg = 0, int ldo = 0) {
   const size_t bytes = block_smem<NT>(k);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         block_rows<NT, PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  block_rows<NT, PER><<<(unsigned)R, NT, bytes, s>>>(v, ov, oi, m, k);
+  block_rows<NT, PER><<<dim3((unsigned)R, (unsigned)segs), NT, bytes, s>>>(
+      v, ov, oi, m, k, segs == 1 ? m : seg, segs == 1 ? k : ldo);
   return (int)cudaGetLastError();
+}
+
+// ---- k > kMaxK: radix select in a row, the winners sorted in scratch ----
+//
+// One block of kRadixThreads a row.  Four passes over the row (8 bits of
+// the image a pass, a 256-bin histogram in shared memory of the images
+// that match the bits chosen so far) give the k-th largest image T and how
+// many images equal to it are taken (need; the rest of the k are above
+// it).  One pass in index order then writes the keys of every image > T
+// (at an atomic position) and of the first `need` images == T (ranked by a
+// block scan, lowest index first) to the row's scratch [P2] (P2 the power
+// of two >= k, zero keys past k), a bitonic sort puts them in descending
+// key order in place, and the first k are written as the row holds them.
+// Simple and right; each step is a pass over the row or the scratch.
+constexpr int kRadixThreads = 1024;
+
+__global__ void __launch_bounds__(kRadixThreads)
+radix_rows(const float* __restrict__ values, float* __restrict__ out_v,
+           long long* __restrict__ out_i, u64* __restrict__ scratch, int m, int k, int P2) {
+  constexpr int NT = kRadixThreads, NW = NT / 32;
+  __shared__ u32 hist[256];
+  __shared__ u32 red[2][NW];
+  __shared__ u32 s_bin, s_rest, s_gt;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const float* src = values + (size_t)blockIdx.x * m;
+  u64* keys = scratch + (size_t)blockIdx.x * P2;
+
+  u32 prefix = 0u, mask = 0u, rest = (u32)k;   // rest: the rank sought among the matches
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int b = t; b < 256; b += NT) hist[b] = 0u;
+    __syncthreads();
+    for (int i = t; i < m; i += NT) {
+      const u32 img = order_bits(__ldg(src + i));
+      if ((img & mask) == prefix) atomicAdd(&hist[(img >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (t == 0) {
+      u32 above = 0u;
+      int b = 255;
+      for (; b > 0 && above + hist[b] < rest; --b) above += hist[b];
+      s_bin = (u32)b;
+      s_rest = rest - above;
+    }
+    __syncthreads();
+    prefix |= s_bin << shift;
+    mask |= 255u << shift;
+    rest = s_rest;
+    __syncthreads();                    // s_bin / s_rest read before the next pass
+  }
+  const u32 T = prefix, need = rest, ngt = (u32)k - need;
+  if (t == 0) s_gt = 0u;
+  __syncthreads();
+  const u32 below = lanes_below();
+  u32 taken = 0u;
+  for (int i0 = 0; i0 < m; i0 += NT) {  // block-uniform trip count
+    const int i = i0 + t;
+    const u32 img = i < m ? order_bits(__ldg(src + i)) : 0u;
+    if (i < m && img > T) keys[atomicAdd(&s_gt, 1u)] = make_key(img, i);
+    const bool eq = i < m && img == T;
+    if (taken < need) {                 // block-uniform
+      const u32 b = __ballot_sync(kFull, eq);
+      u32* sums = red[(i0 / NT) & 1];
+      if (lane == 0) sums[warp] = __popc(b);
+      __syncthreads();
+      u32 before = 0u, all = 0u;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const u32 r = sums[w];
+        before += w < warp ? r : 0u;
+        all += r;
+      }
+      const u32 r = taken + before + __popc(b & below);
+      if (eq && r < need) keys[ngt + r] = make_key(T, i);
+      taken += all;
+    }
+  }
+  for (int i = k + t; i < P2; i += NT) keys[i] = 0ull;
+  __syncthreads();
+  for (int size = 2; size <= P2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < P2 / 2; i += NT) {
+        const int lo = (i / stride) * 2 * stride + i % stride, hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const u64 a = keys[lo], b = keys[hi];
+        if ((a < b) == desc) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  float* ov = out_v + (size_t)blockIdx.x * k;
+  long long* oi = out_i + (size_t)blockIdx.x * k;
+  for (int r = t; r < k; r += NT) {
+    const int i = key_index(keys[r]);
+    ov[r] = __ldg(src + i);
+    oi[r] = i;
+  }
 }
 
 }  // namespace s1
 
 // (values [R, m] f32, out_v [R, k] f32, out_i [R, k] int64, R, m, k, stream)
+// m <= 32,768 and k <= 1,024
 extern "C" int crt_window_topk(const void* values, void* out_v, void* out_i,
                                int R, int m, int k, void* stream) {
   using namespace s1;
@@ -447,4 +567,35 @@ extern "C" int crt_window_topk(const void* values, void* out_v, void* out_i,
   if (m <= 8192) return launch_block<256, 32>(v, ov, oi, R, m, k, s);
   if (m <= 16384) return launch_block<512, 32>(v, ov, oi, R, m, k, s);
   return launch_block<1024, 32>(v, ov, oi, R, m, k, s);
+}
+
+// The first level of a row longer than 32,768 (k <= 1,024): segment s of
+// lanes [32,768 s, 32,768 (s + 1)) of each row gives its min(k, length)
+// winners, in S1's order, to out[row, s k ...]; out rows hold
+// ldo = (segments - 1) k + min(k, last length) entries, indices in the row.
+extern "C" int crt_window_topk_segments(const void* values, void* out_v, void* out_i,
+                                        int R, int m, int k, int ldo, void* stream) {
+  using namespace s1;
+  const int segs = (m + kMaxM - 1) / kMaxM;
+  const int last = m - (segs - 1) * kMaxM;
+  if (R < 0 || m <= kMaxM || k < 1 || k > kMaxK || segs > 65535 ||
+      ldo != (segs - 1) * k + (k < last ? k : last))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  return launch_block<1024, 32>((const float*)values, (float*)out_v, (long long*)out_i, R, m,
+                                k, (cudaStream_t)stream, segs, kMaxM, ldo);
+}
+
+// k > 1,024, any m >= k: radix select a row (radix_rows); scratch: R x P2
+// uint64 keys, P2 the power of two >= k.
+extern "C" int crt_window_topk_large(const void* values, void* out_v, void* out_i,
+                                     void* scratch, int R, int m, int k, int P2,
+                                     void* stream) {
+  using namespace s1;
+  if (R < 0 || k < 1 || k > m || P2 < k || (P2 & (P2 - 1)) || P2 / 2 >= k)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  radix_rows<<<(unsigned)R, kRadixThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)values, (float*)out_v, (long long*)out_i, (u64*)scratch, m, k, P2);
+  return (int)cudaGetLastError();
 }

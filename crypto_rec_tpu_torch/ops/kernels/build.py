@@ -62,6 +62,10 @@ _SIGNATURES = {
     # (values, out_v, out_i, R, m, k, stream)
     "crt_window_topk": (_P, _P, _P, _I, _I, _I, _P),
     "crt_window_topk_prev": (_P, _P, _P, _I, _I, _I, _P),
+    # (values, out_v, out_i, R, m, k, ldo, stream)
+    "crt_window_topk_segments": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (values, out_v, out_i, scratch, R, m, k, P2, stream)
+    "crt_window_topk_large": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -21,6 +21,7 @@ from crypto_rec_tpu_torch.ops.kernels import build
 # temporary (the JAX build streams the same chunk size through lax.map)
 _CHUNK = 1 << 18
 _MAX_K = 30                       # int32 bucket ids
+_PREV_SMEM_FLOATS = 232448 // 4   # the previous design's shared memory a block
 
 
 def _check(x: torch.Tensor, proj: torch.Tensor, k: int, L: int) -> None:
@@ -57,10 +58,12 @@ def signproj_bucket_ids(
 ) -> torch.Tensor:
     """[n, d] x [d, L*k] -> [n, L] int32 bucket ids (MSB-first pack).
 
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors the Hopper kernel, at
+    any d and L and 1 <= k <= 30 (the kernel streams proj beside x and
+    splits the tables into groups where one block cannot hold a slice of
+    all of them)."""
     if not x.is_cuda:
         return signproj_bucket_ids_plain(x, proj, k, L)
-    _check(x, proj, k, L)
     out = _launch("crt_signproj", x, proj, k, L)
     signproj_bucket_ids.launches += 1
     return out
@@ -74,21 +77,37 @@ def signproj_bucket_ids_prev(
 ) -> torch.Tensor:
     """K2's previous design (`csrc/signproj_prev.cu`), kept so a run on the
     card can time it beside the streamed kernel on the same inputs; no
-    path of the package calls it.  CPU tensors take the plain version."""
+    path of the package calls it.  CPU tensors take the plain version; on
+    CUDA tensors it raises where `prev_takes` is false."""
     if not x.is_cuda:
         return signproj_bucket_ids_plain(x, proj, k, L)
-    _check(x, proj, k, L)
+    if not prev_takes(x.shape[1], k, L):
+        raise ValueError(f"the previous signproj design keeps all of proj [{x.shape[1]}, "
+                         f"{L * k}] in shared memory: it cannot launch here")
     return _launch("crt_signproj_prev", x, proj, k, L)
 
 
-_MAX_L = 64                       # the kernel's (row group, table) units a block
+def prev_takes(d: int, k: int, L: int) -> bool:
+    """Whether K2's previous design launches at [n, d] x [d, L k]: all of
+    proj (d padded to a multiple of 4) and a tile of two x rows fit in its
+    227 KB of shared memory, and L <= 256 (`csrc/signproj_prev.cu`)."""
+    d4 = -(-d // 4) * 4
+    return 1 <= L <= 256 and d4 * L * k + 2 * (d4 + 1) <= _PREV_SMEM_FLOATS
 
 
-def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
+def check_signproj(x: torch.Tensor, proj: torch.Tensor, k: int, L: int) -> None:
+    """Raise on what the card's K2 does not take, before any launch: x and
+    proj not [n, d] and [d, L k] float32 on one device, or k outside 1..30
+    (int32 ids).  Any d and any L."""
+    _check(x, proj, k, L)
     if x.dtype != torch.float32 or proj.dtype != torch.float32:
         raise TypeError("the signproj kernel takes float32 x and proj")
     if proj.device != x.device:
         raise ValueError("x and proj must live on the same CUDA device")
+
+
+def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
+    check_signproj(x, proj, k, L)
     if x.shape[1] % 4:
         # the kernel reads rows as float4: zero columns in x and zero rows
         # in proj add exact zeros to every projection
@@ -96,8 +115,6 @@ def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (0, pad))
         proj = torch.nn.functional.pad(proj, (0, 0, 0, pad))
     n, d = x.shape
-    if L > _MAX_L:
-        raise ValueError(f"the signproj kernel takes at most {_MAX_L} tables, got L={L}")
     x = x.contiguous()
     proj = proj.contiguous()
     if x.data_ptr() % 16:

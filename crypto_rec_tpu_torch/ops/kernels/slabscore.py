@@ -70,6 +70,12 @@ def align_starts(starts: torch.Tensor, align: int, last: int) -> torch.Tensor:
     return torch.clamp(torch.div(starts, align, rounding_mode="floor") * align, max=last)
 
 
+def row_slab_takes(dtype: torch.dtype, d: int) -> bool:
+    """Whether a row-slab kernel takes rows of d values of this dtype:
+    whole 16-value chunks, at most _MAX_ROW_BYTES a row."""
+    return d % 16 == 0 and d * dtype.itemsize <= _MAX_ROW_BYTES
+
+
 def check_row_slab(name: str, packed, starts, queries, dtypes) -> None:
     """Raise on what a row-slab kernel ([L, n_pad, d] slabs read as 16-byte
     chunks, <= 2048 B a row) does not take: the slab dtype, d % 16, the
@@ -78,11 +84,9 @@ def check_row_slab(name: str, packed, starts, queries, dtypes) -> None:
         names = "/".join(str(t)[6:] for t in dtypes)
         raise TypeError(f"{name} takes {names} slabs, got {packed.dtype}")
     d = packed.shape[2]
-    if d % 16:
-        raise ValueError(f"{name} needs d % 16 == 0, got d={d}")
-    if d * packed.element_size() > _MAX_ROW_BYTES:
-        raise ValueError(f"slab rows of {d * packed.element_size()} B exceed "
-                         f"{name}'s {_MAX_ROW_BYTES} B")
+    if not row_slab_takes(packed.dtype, d):
+        raise ValueError(f"{name} takes rows of d % 16 == 0 and at most {_MAX_ROW_BYTES} "
+                         f"B; got d={d}, {d * packed.element_size()} B")
     if queries.shape != (starts.shape[0], d):
         raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
     if starts.device != packed.device or queries.device != packed.device:
@@ -200,14 +204,21 @@ def split_bf16x3(queries: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)], dim=1)
 
 
+def rows_aligned(dtype: torch.dtype, d: int) -> bool:
+    """Whether slab rows of d values are whole 16-byte chunks (what the
+    tensor-core K1 bodies load; the FFMA body takes any row)."""
+    return d * dtype.itemsize % 16 == 0
+
+
 def tile_shape(dtype: torch.dtype, d: int) -> Tuple[int, int]:
-    """(RT tile rows, M pairs per work item) of the tile-major K1 for a slab
-    dtype and row width: the tensor-core body takes 32 pairs and tiles of
-    256 rows (128 above d = 128: a tile's bf16 rows stay at 64 KB); f32
-    slabs 32 and 32."""
-    if dtype == torch.float32:
+    """(RT tile rows, M pairs per work item) of the tile-major K1 body that
+    takes a slab dtype and row width (`crt_slab_tile_dots` checks the
+    pair): f32 slabs, and int8 / bf16 rows that are not 16-byte aligned,
+    the FFMA body, 32 and 32; other int8 / bf16 rows the tensor-core body,
+    which streams d in chunks, 256 and 32."""
+    if dtype == torch.float32 or not rows_aligned(dtype, d):
         return 32, 32
-    return (256 if d <= 128 else 128), 32
+    return 256, 32
 
 
 def tile_work(row0: torch.Tensor, win: int, n_rows: int, rt: int, m: int):
@@ -288,6 +299,8 @@ def tile_launch(packed: torch.Tensor, queries: torch.Tensor, plan,
 
 
 def _check_tile_slab(packed: torch.Tensor) -> None:
+    """The probe kernels' tile-major bodies (`csrc/probetile.cu`: P2-P6)
+    stage whole rows: d % 64 == 0 and d <= 256 (f32 rows d % 4 == 0)."""
     d = packed.shape[2]
     if packed.dtype == torch.float32:
         ok = d % 4 == 0 and d <= 256
@@ -301,9 +314,48 @@ def _check_tile_slab(packed: torch.Tensor) -> None:
         raise ValueError("the slab kernel indexes rows with int32")
 
 
+def check_k1(packed: torch.Tensor, starts: torch.Tensor, queries: torch.Tensor) -> None:
+    """Raise on what K1's card route does not take, before any launch:
+    slabs other than int8 / bf16 / f32, queries not [q, d], operands on
+    other devices, a slab that is not contiguous (or, for the tensor-core
+    bodies, not 16-byte aligned), more rows or (query, window) pairs than
+    int32 counts.  Any row width: the tensor-core body streams d in
+    chunks, the FFMA body takes rows of any alignment."""
+    if packed.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the slab kernel takes int8/bfloat16/float32 slabs, "
+                        f"got {packed.dtype}")
+    d = packed.shape[2]
+    if queries.shape != (starts.shape[0], d):
+        raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
+    if starts.device != packed.device or queries.device != packed.device:
+        raise ValueError("the slab kernel: slabs, starts and queries must share one "
+                         "CUDA device")
+    if not packed.is_contiguous() or (rows_aligned(packed.dtype, d)
+                                      and packed.data_ptr() % 16):
+        raise ValueError("the slab kernel needs a contiguous slab, 16-byte aligned "
+                         "where its rows are")
+    if packed.shape[0] * packed.shape[1] >= 1 << 31 or starts.numel() >= 1 << 31:
+        raise ValueError("the slab kernel indexes rows and pairs with int32")
+
+
+def card_geometry(packed, starts, sizes, queries, per_table, mask, shared_slab,
+                  packed_scale=None):
+    """Every check K1's card route makes before its launch (plain torch,
+    so it runs on any device) -> its geometry (win, aligned, row0, head,
+    size; size None with the mask off).  Where the JAX function raises too:
+    a window longer than the slab, mask=True without sizes, a scale with
+    shared_slab."""
+    _check_sizes(sizes, mask)
+    _check_scale(packed, packed_scale, shared_slab)
+    check_k1(packed, starts, queries)
+    win, aligned, row0, head, size = _geometry(
+        packed, starts, sizes if mask else None, per_table, shared_slab)
+    return win, aligned, row0.contiguous(), head.contiguous(), size
+
+
 def _cuda_args(packed, starts, sizes, queries, per_table, mask, shared_slab):
-    """Checks and geometry shared by the two CUDA bodies; size is None
-    with the mask off."""
+    """The row-wise body's checks (`check_row_slab`: d % 16 == 0, rows of
+    at most 2,048 B) and geometry; size is None with the mask off."""
     _check_sizes(sizes, mask)
     check_row_slab("the slab kernel", packed, starts, queries, _DTYPE_CODE)
     win, aligned, row0, head, size = _geometry(
@@ -332,16 +384,15 @@ def slab_window_dots(
     shared_slab.
 
     CPU tensors take the plain version; CUDA tensors the tile-major Hopper
-    kernel (`csrc/slabtile.cu`), scale included; its work list
-    (`tile_plan`) runs here on the device, inside K1's time."""
+    kernel (`csrc/slabtile.cu`), scale included, at any row width
+    (`card_geometry` holds its checks); its work list (`tile_plan`) runs
+    here on the device, inside K1's time."""
     if not packed.is_cuda:
         return slab_window_dots_plain(
             packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale
         )
-    _check_scale(packed, packed_scale, shared_slab)
-    _check_tile_slab(packed)
-    win, aligned, row0, head, size = _cuda_args(
-        packed, starts, sizes, queries, per_table, mask, shared_slab)
+    win, aligned, row0, head, size = card_geometry(
+        packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale)
     q, T = starts.shape
     dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
     if q == 0:

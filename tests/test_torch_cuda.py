@@ -957,15 +957,21 @@ def test_window_topk_kernel_at_the_candidate_cap(cuda, m, k, cap, side):
 
 
 def test_window_topk_kernel_refuses_what_it_does_not_take(cuda):
+    """S1 raises where lax.top_k does (k outside 1..m) and on what is not
+    f32 [R, m]; rows past MAX_M lanes and k past MAX_K, which it refused
+    before, now return topk_desc's answer."""
     from crypto_rec_tpu_torch.ops.kernels.windowtopk import MAX_K, MAX_M, window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
 
     v = torch.zeros(4, 64, device=cuda)
     for bad, err in [((v, 65), ValueError), ((v, 0), ValueError),
-                     ((torch.zeros(2, MAX_M + 1, device=cuda), 3), ValueError),
-                     ((torch.zeros(2, MAX_K + 1, device=cuda), MAX_K + 1), ValueError),
                      ((v.double(), 3), TypeError), ((v[None], 3), ValueError)]:
         with pytest.raises(err):
             window_topk(*bad)
+    for wide, k in [(torch.zeros(2, MAX_M + 1, device=cuda), 3),
+                    (torch.zeros(2, MAX_K + 1, device=cuda), MAX_K + 1)]:
+        got = window_topk(wide, k)
+        assert torch.equal(got[1], topk_desc(wide, k)[1])
     before = window_topk.launches
     e = window_topk(torch.zeros(0, 64, device=cuda), 5)
     assert e[0].shape == (0, 5) and window_topk.launches == before
@@ -993,3 +999,254 @@ def test_stage1_sites_launch_s1(cuda, strict):
     torch.cuda.synchronize()
     assert window_topk.launches == before + 1
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+# ---- the shape envelope: K1 past d = 256, K2 past its shared memory, S1
+# past m = 32,768 and k = 1,024 ----
+
+WIDE_K1 = [(torch.int8, 384), (torch.int8, 1024), (torch.int8, 1536), (torch.int8, 80),
+           (torch.int8, 100), (torch.bfloat16, 392), (torch.bfloat16, 1536),
+           (torch.bfloat16, 100), (torch.float32, 15), (torch.float32, 100),
+           (torch.float32, 384), (torch.float32, 1000)]
+
+
+@pytest.mark.parametrize("mask,shared", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("dtype,d", WIDE_K1)
+def test_slab_kernel_wide_rows_match_plain(cuda, dtype, d, mask, shared):
+    """The tensor-core body at the widths past d = 256 or off a multiple of
+    64 (int8 d % 16 == 0, bf16 d % 8 == 0) and the FFMA body (f32, and int8 / bf16 rows
+    not 16-byte aligned) against the plain version on every window, rtol
+    1e-5 / atol 1e-6 of the largest |dot|; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    T, n_pad, q, per_table = 4, 4096, 160, 488
+    packed = _slabs(g, (T, n_pad, d), dtype, cuda)
+    if shared:
+        packed = packed[:1].contiguous()
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    starts[:20] = n_pad - 3
+    starts[20:60] = 1000
+    sizes = torch.randint(0, 600, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(q, d, generator=g, device=cuda)
+    args = (packed, starts, sizes, qv, per_table)
+    before = slab_window_dots.launches
+    got, a_got = slab_window_dots(*args, mask=mask, shared_slab=shared)
+    want, a_want = slab_window_dots_plain(*args, mask=mask, shared_slab=shared)
+    torch.cuda.synchronize()
+    assert slab_window_dots.launches == before + 1
+    assert torch.equal(a_got, a_want)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    scale = float(want[fin].abs().max())
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_slab_kernel_wide_rows_per_row_scale(cuda):
+    """packed_scale on int8 rows of d = 768 (the tensor-core body's epilogue
+    after twelve d-chunks)."""
+    g = torch.Generator(device=cuda).manual_seed(768)
+    T, n_pad, q, d = 2, 4096, 100, 768
+    packed = _slabs(g, (T, n_pad, d), torch.int8, cuda)
+    scale = _row_scales(g, T, n_pad, n_pad - 100, cuda)
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    sizes = torch.randint(0, 600, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, d, generator=g, device=cuda), dim=-1)
+    args = (packed, starts, sizes, qv, 488)
+    got, _ = slab_window_dots(*args, mask=True, packed_scale=scale)
+    want, _ = slab_window_dots_plain(*args, mask=True, packed_scale=scale)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-4 * float(scale.max()))
+
+
+def test_slab_kernel_raises_only_where_jax_or_the_cpu_path_raises(cuda):
+    """On the card K1 raises, before any launch, on a window longer than
+    the slab and on a scale with shared_slab (as the JAX function does)
+    and on mask=True without sizes (as the CPU path does)."""
+    packed = torch.zeros(2, 300, 384, dtype=torch.int8, device=cuda)
+    starts = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
+    q = torch.zeros(3, 384, device=cuda)
+    before = slab_window_dots.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        slab_window_dots(packed, starts, starts, q, 400)
+    with pytest.raises(ValueError, match="shared_slab"):
+        slab_window_dots(packed[:1].contiguous(), starts, starts, q, 100, mask=False,
+                         shared_slab=True, packed_scale=torch.ones(1, 300, device=cuda))
+    with pytest.raises(ValueError, match="sizes"):
+        slab_window_dots(packed, starts, None, q, 100, mask=True)
+    assert slab_window_dots.launches == before
+
+
+def test_signproj_prev_raises_where_it_cannot_launch(cuda):
+    """K2's previous design keeps all of proj in shared memory: past that
+    (`prev_takes` false) its wrapper raises before any launch, and inside
+    it the design still launches."""
+    from crypto_rec_tpu_torch.ops.kernels.signproj import prev_takes, signproj_bucket_ids_prev
+
+    g = torch.Generator(device=cuda).manual_seed(1536)
+    x = torch.randn(64, 1536, generator=g, device=cuda)
+    proj = torch.randn(1536, 8 * 13, generator=g, device=cuda)
+    assert not prev_takes(1536, 13, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        signproj_bucket_ids_prev(x, proj, 13, 8)
+    assert prev_takes(128, 13, 8)
+    xs, ps = x[:, :128].contiguous(), proj[:128].contiguous()
+    got = signproj_bucket_ids_prev(xs, ps, 13, 8)
+    want = signproj_bucket_ids_plain(xs, ps, 13, 8)
+    torch.cuda.synchronize()
+    acc = (xs @ ps).abs() <= 1e-5 * xs.norm(dim=1, keepdim=True) * ps.norm(dim=0)
+    near = acc.view(64, 8, 13).any(-1)
+    assert not ((got != want) & ~near).any()
+
+
+@pytest.mark.parametrize("n,d,k,L", [(20_000, 1536, 13, 8), (20_000, 768, 13, 16),
+                                     (8_000, 384, 30, 64), (9_000, 128, 13, 80),
+                                     (3_000, 960, 1, 200), (50_000, 1536, 13, 1),
+                                     (30_000, 1024, 30, 2)])
+def test_signproj_kernel_wide_matches_plain(cuda, n, d, k, L):
+    """K2 past what the resident projection fit: proj streamed beside x,
+    tables in groups on grid.y (L = 64 at k = 30, L = 80, L = 200); ids
+    equal to the plain version's away from projections within rounding
+    distance of 0; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(n + d + L)
+    x = torch.randn(n, d, generator=g, device=cuda)
+    proj = torch.randn(d, L * k, generator=g, device=cuda)
+    before = signproj_bucket_ids.launches
+    got = signproj_bucket_ids(x, proj, k, L)
+    want = signproj_bucket_ids_plain(x, proj, k, L)
+    torch.cuda.synchronize()
+    assert signproj_bucket_ids.launches == before + 1
+    acc = (x @ proj).abs() <= 1e-5 * x.norm(dim=1, keepdim=True) * proj.norm(dim=0)
+    near = acc.view(n, L, k).any(-1)
+    assert not ((got != want) & ~near).any()
+
+
+@pytest.mark.parametrize("m,k", [(40960, 40), (131072, 40), (65537, 1024), (32769, 1),
+                                 (40960, 33), (8192, 2048), (2049, 2049), (40960, 1500),
+                                 (1025, 1025), (5000, 4096), (131072, 2048)])
+def test_window_topk_past_one_launch_equals_plain(cuda, m, k):
+    """Rows past MAX_M lanes (two levels) and k past MAX_K (the radix
+    select) on tied rows: topk_desc's answer bit for bit, on the card and
+    against the CPU; one count a launch (a level of two levels or more, or
+    the radix select's one)."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import (
+        MAX_K, MAX_M, segment_width, window_topk,
+    )
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    levels, w = 1, m
+    while k <= MAX_K and w > MAX_M:
+        levels, w = levels + 1, segment_width(w, k)
+    R = max(2, min(256, (1 << 24) // m))
+    v = _tied_rows(R, m, torch.Generator().manual_seed(m + k), cuda)
+    before = window_topk.launches
+    got = window_topk(v, k)
+    torch.cuda.synchronize()
+    assert window_topk.launches == before + levels
+    for want in (topk_desc(v, k), topk_desc(v.cpu(), k)):
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+        assert torch.equal(got[0].cpu().view(torch.int32), want[0].cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("fill", [float("nan"), float("-inf"), -0.0, 2.5])
+@pytest.mark.parametrize("m,k", [(40960, 40), (8192, 2048)])
+def test_window_topk_past_one_launch_on_constant_rows(cuda, fill, m, k):
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+    from crypto_rec_tpu_torch.ops.topk import topk_desc
+
+    v = torch.full((16, m), fill, device=cuda)
+    v[::4, m // 2] = float("inf") if fill != fill else float("nan")
+    got = window_topk(v, k)
+    want = topk_desc(v.cpu(), k)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+
+
+# ---- against the previous build (CRT_PREV_TREE: a checkout of the parent
+# commit, e.g. unpacked by `git archive`): at the shapes the previous kernels
+# took, the dots and ids are theirs bit for bit ----
+
+_PREV = {}
+
+
+@pytest.fixture
+def prev_lib(cuda):
+    """The previous tree's kernels, built by tools/chip_probes/prev_build_ab.py."""
+    import importlib.util
+    import os
+    from pathlib import Path
+
+    root = os.environ.get("CRT_PREV_TREE")
+    if not root:
+        pytest.skip("set CRT_PREV_TREE to a checkout of the previous commit")
+    if "lib" not in _PREV:
+        path = Path(__file__).resolve().parents[1] / "tools" / "chip_probes" / "prev_build_ab.py"
+        spec = importlib.util.spec_from_file_location("prev_build_ab", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _PREV["lib"] = mod.prev_library(root)
+        _PREV["slabscore"] = mod.prev_slabscore(root)
+    return _PREV["lib"]
+
+
+@pytest.fixture
+def prev_slabscore(prev_lib):
+    """The previous tree's K1 wrapper module: the work list its kernel takes."""
+    return _PREV["slabscore"]
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("dtype,d", [(torch.int8, 64), (torch.int8, 128), (torch.int8, 192),
+                                     (torch.int8, 256), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256), (torch.float32, 16),
+                                     (torch.float32, 128), (torch.float32, 256),
+                                     (torch.float32, 100)])
+def test_slab_kernel_equals_previous_build(prev_lib, prev_slabscore, dtype, d, mask, scaled):
+    """K1 at d <= 256 (the widths the previous build took): each build on
+    the work list its own tree cuts gives the same dots, bit for bit."""
+    from crypto_rec_tpu_torch.ops.kernels import slabscore as S
+
+    cuda = torch.device("cuda")
+    g = torch.Generator(device=cuda).manual_seed(d + 7)
+    T, n_pad, q, per_table = 4, 8192, 300, 488
+    packed = _slabs(g, (T, n_pad, d), dtype, cuda)
+    starts = torch.randint(0, n_pad, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    starts[:80] = 2000
+    sizes = torch.randint(0, 600, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.randn(q, d, generator=g, device=cuda)
+    scale = _row_scales(g, T, n_pad, n_pad - 100, cuda) if scaled else None
+    win, _, row0, head, size = S.card_geometry(packed, starts, sizes, qv, per_table, mask,
+                                               False, scale)
+    new = torch.empty(q, T, win, device=cuda)
+    old = torch.full_like(new, float("nan"))
+    S.tile_launch(packed, qv, S.tile_plan(packed, row0, head, size, win), new, mask, scale)
+    meta, item_tile, item_lo, item_cnt = prev_slabscore.tile_plan(packed, row0, head, size,
+                                                                  win)
+    rt, m = prev_slabscore.tile_shape(packed.dtype, d)
+    err = prev_lib.crt_slab_tile_dots(
+        packed.data_ptr(), qv.data_ptr(), None if scale is None else scale.data_ptr(),
+        meta.data_ptr(), item_tile.data_ptr(), item_lo.data_ptr(), item_cnt.data_ptr(),
+        old.data_ptr(), item_tile.numel(), meta.shape[1], T, win, d, T * n_pad, int(mask),
+        S._DTYPE_CODE[dtype], rt, m, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(new.view(torch.int32), old.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,d,k,L", [(100_000, 128, 13, 8), (100_000, 128, 13, 1),
+                                     (20_000, 16, 4, 5), (300, 32, 5, 3),
+                                     (50_000, 256, 13, 8), (50_000, 128, 30, 2),
+                                     (50_000, 64, 7, 16), (40_000, 128, 10, 6)])
+def test_signproj_kernel_equals_previous_build(prev_lib, n, d, k, L):
+    """K2 at shapes the previous build took: the same ids, bit for bit."""
+    cuda = torch.device("cuda")
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn(n, d, generator=g, device=cuda)
+    proj = torch.randn(d, L * k, generator=g, device=cuda)
+    new = signproj_bucket_ids(x, proj, k, L)
+    old = torch.empty_like(new)
+    err = prev_lib.crt_signproj(x.data_ptr(), proj.data_ptr(), old.data_ptr(), n, d, k, L,
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(new, old)
