@@ -1,0 +1,7 @@
+"""Queries whose top-k returned in the window, a second."""
+
+from portbench import readers
+
+
+def read(rec):
+    return readers.rows_per_s(rec)
