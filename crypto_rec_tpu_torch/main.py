@@ -20,6 +20,7 @@ import torch
 
 from crypto_rec_tpu_torch.config import RecConfig, load_config
 from crypto_rec_tpu_torch.models.rec.pipeline import run_pipeline
+from crypto_rec_tpu_torch.utils import timing
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -31,7 +32,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--profile", default=None, metavar="DIR",
-        help="write a torch.profiler trace of the whole run to DIR/trace.json",
+        help="write a torch.profiler trace of the whole run to DIR/trace.json and its "
+             "spans and counters (utils/timing.snapshot) to DIR/spans.json",
     )
     p.add_argument(
         "--silhouette", action="store_true",
@@ -79,6 +81,8 @@ def main(argv=None) -> int:
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump(timing.snapshot(), f, indent=1)
     summary = {
         "phase_ms": result.phase_ms,
         "n_users": result.n_users,

@@ -44,6 +44,7 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     packed_retrieve_pallas, packed_retrieve_pallas_euclid, slab_topk, slab_window_dots,
 )
 from crypto_rec_tpu_torch.ops.topk import topk_desc
+from crypto_rec_tpu_torch.utils import timing
 
 _PACK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
@@ -162,20 +163,21 @@ def _csr_from_buckets(
     fingerprints) is a second sort key in signed int32 order, so each
     exact-tuple cell is a contiguous run of its bucket: one int64 key
     bucket * 2^32 + (fp + 2^31) sorts both at once."""
-    n, L = bucket_ids.shape
-    edges = torch.arange(n_buckets + 1, dtype=torch.int64, device=bucket_ids.device)
-    rows, starts = [], []
-    for l in range(L):
-        key = bucket_ids[:, l].long()
-        if secondary is not None:
-            key = (key << 32) + (secondary[:, l].long() + (1 << 31))
-        sorted_key, order = torch.sort(key, stable=True)
-        if secondary is not None:
-            sorted_key = sorted_key >> 32
-        rows.append(order.to(torch.int32))
-        starts.append(torch.searchsorted(sorted_key, edges, right=False,
-                                         out_int32=True))
-    return torch.stack(rows), torch.stack(starts)
+    with timing.span("csr"):
+        n, L = bucket_ids.shape
+        edges = torch.arange(n_buckets + 1, dtype=torch.int64, device=bucket_ids.device)
+        rows, starts = [], []
+        for l in range(L):
+            key = bucket_ids[:, l].long()
+            if secondary is not None:
+                key = (key << 32) + (secondary[:, l].long() + (1 << 31))
+            sorted_key, order = torch.sort(key, stable=True)
+            if secondary is not None:
+                sorted_key = sorted_key >> 32
+            rows.append(order.to(torch.int32))
+            starts.append(torch.searchsorted(sorted_key, edges, right=False,
+                                             out_int32=True))
+        return torch.stack(rows), torch.stack(starts)
 
 
 def _fp_run_starts(
@@ -230,40 +232,43 @@ def build_index(
     parameters come from `generator` unless `family` hands them over (the
     tests pass the JAX package's).  Euclidean rows hash in chunks, so the
     [chunk, L, k] h-values never exist for all n rows."""
-    n, d = vectors.shape
-    if metric == "cosine":
-        if family is None:
-            family = CosineLsh.create(generator, d, k, L, vectors.device)
-        n_buckets = family.n_buckets
-        bucket_ids = family.bucket_ids(vectors)
-        detailed = None
-    elif metric == "euclidean":
-        if family is None:
-            family = PStableLsh.create(generator, d, k, L, euclidean_h_w,
-                                       vectors.device)
-        n_buckets = max(1, n // max(1, lsh_bucket_div))
-        bucket_ids = torch.empty(n, L, dtype=torch.int32, device=vectors.device)
-        detailed = torch.empty(L, n, dtype=torch.int32, device=vectors.device)
-        chunk = 1 << 18
-        for s in range(0, n, chunk):
-            h = family.hash_values(vectors[s:s + chunk])
-            bucket_ids[s:s + chunk] = family.bucket_ids_from_hashes(h, n_buckets)
-            detailed[:, s:s + chunk] = family.fingerprints_from_hashes(h).T
-    else:
-        raise ValueError(f"unknown metric {metric!r}")
-    sorted_rows, starts = _csr_from_buckets(
-        bucket_ids, n_buckets, secondary=None if detailed is None else detailed.T
-    )
-    return LshIndex(
-        metric=metric,
-        n_buckets=n_buckets,
-        n_rows=n,
-        family=family,
-        bucket_ids=bucket_ids,
-        sorted_rows=sorted_rows,
-        bucket_starts=starts,
-        detailed=detailed,
-    )
+    with timing.span("build"):
+        n, d = vectors.shape
+        if metric == "cosine":
+            if family is None:
+                family = CosineLsh.create(generator, d, k, L, vectors.device)
+            n_buckets = family.n_buckets
+            with timing.span("hash"):
+                bucket_ids = family.bucket_ids(vectors)
+            detailed = None
+        elif metric == "euclidean":
+            if family is None:
+                family = PStableLsh.create(generator, d, k, L, euclidean_h_w,
+                                           vectors.device)
+            n_buckets = max(1, n // max(1, lsh_bucket_div))
+            bucket_ids = torch.empty(n, L, dtype=torch.int32, device=vectors.device)
+            detailed = torch.empty(L, n, dtype=torch.int32, device=vectors.device)
+            chunk = 1 << 18
+            with timing.span("hash"):
+                for s in range(0, n, chunk):
+                    h = family.hash_values(vectors[s:s + chunk])
+                    bucket_ids[s:s + chunk] = family.bucket_ids_from_hashes(h, n_buckets)
+                    detailed[:, s:s + chunk] = family.fingerprints_from_hashes(h).T
+        else:
+            raise ValueError(f"unknown metric {metric!r}")
+        sorted_rows, starts = _csr_from_buckets(
+            bucket_ids, n_buckets, secondary=None if detailed is None else detailed.T
+        )
+        return LshIndex(
+            metric=metric,
+            n_buckets=n_buckets,
+            n_rows=n,
+            family=family,
+            bucket_ids=bucket_ids,
+            sorted_rows=sorted_rows,
+            bucket_starts=starts,
+            detailed=detailed,
+        )
 
 
 def _row_norms(x: torch.Tensor) -> torch.Tensor:
@@ -432,14 +437,15 @@ def pack_index(
     dot.  Unaugmented euclidean slabs carry `packed_sqnorm` for the
     distance -sqrt(|x|^2 - 2 x.q + |q|^2); euclidean slabs carry the
     CSR-ordered fingerprints."""
-    kw = pack_tables(index.sorted_rows, corpus, index.metric, dtype, pad, scale_mode,
-                     augment)
-    n_pad = kw["packed"].shape[1]
-    if index.detailed is not None:
-        kw["packed_detailed"] = torch.nn.functional.pad(
-            torch.gather(index.detailed, 1, index.sorted_rows.long()),
-            (0, n_pad - index.n_rows))
-    return dataclasses.replace(index, **kw)
+    with timing.span("pack"):
+        kw = pack_tables(index.sorted_rows, corpus, index.metric, dtype, pad, scale_mode,
+                         augment)
+        n_pad = kw["packed"].shape[1]
+        if index.detailed is not None:
+            kw["packed_detailed"] = torch.nn.functional.pad(
+                torch.gather(index.detailed, 1, index.sorted_rows.long()),
+                (0, n_pad - index.n_rows))
+        return dataclasses.replace(index, **kw)
 
 
 def pack_index_host(
@@ -499,11 +505,12 @@ def query_hashes(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Hash queries with the index's family -> (bucket_ids [q, L],
     fingerprints [q, L] for euclidean tables, else None)."""
-    if index.metric == "cosine":
-        return index.family.bucket_ids(queries), None
-    h = index.family.hash_values(queries)
-    return (index.family.bucket_ids_from_hashes(h, index.n_buckets),
-            index.family.fingerprints_from_hashes(h))
+    with timing.span("hash"):
+        if index.metric == "cosine":
+            return index.family.bucket_ids(queries), None
+        h = index.family.hash_values(queries)
+        return (index.family.bucket_ids_from_hashes(h, index.n_buckets),
+                index.family.fingerprints_from_hashes(h))
 
 
 def candidate_mask(
@@ -729,21 +736,22 @@ def rerank_exact(
     paths' second stage): one [q, m, d] row gather, then cosine
     similarity or negated euclidean distance; equal scores keep the
     candidate list's order (`topk_desc`, as JAX's `lax.top_k`)."""
-    valid = ids >= 0
-    cand = corpus[torch.clamp(ids, min=0).long()].float()         # [q, m, d]
-    qv = queries.float()
-    if metric == "cosine":
-        qn = qv / torch.clamp(_row_norms(qv), min=1e-30)
-        dots = torch.einsum("qd,qmd->qm", qn, cand)
-        cn = torch.sqrt(torch.sum(cand * cand, dim=2))
-        score = dots / torch.clamp(cn, min=1e-30)
-    else:
-        diff = cand - qv[:, None, :]
-        score = -torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2), min=0.0))
-    score = torch.where(valid, score, float("-inf"))
-    s, pos = topk_desc(score, top_k)          # equal scores: the earlier candidate
-    out = torch.gather(ids, 1, pos)
-    return s, torch.where(s > float("-inf"), out, -1)
+    with timing.span("rerank"):
+        valid = ids >= 0
+        cand = corpus[torch.clamp(ids, min=0).long()].float()         # [q, m, d]
+        qv = queries.float()
+        if metric == "cosine":
+            qn = qv / torch.clamp(_row_norms(qv), min=1e-30)
+            dots = torch.einsum("qd,qmd->qm", qn, cand)
+            cn = torch.sqrt(torch.sum(cand * cand, dim=2))
+            score = dots / torch.clamp(cn, min=1e-30)
+        else:
+            diff = cand - qv[:, None, :]
+            score = -torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2), min=0.0))
+        score = torch.where(valid, score, float("-inf"))
+        s, pos = topk_desc(score, top_k)          # equal scores: the earlier candidate
+        out = torch.gather(ids, 1, pos)
+        return s, torch.where(s > float("-inf"), out, -1)
 
 
 def retrieve_topk_pallas(
@@ -766,29 +774,30 @@ def retrieve_topk_pallas(
     global-scale index, which dequantizes the raw-dot scores instead.
 
     -> (scores [q, top_k] descending, row ids [q, top_k] int32, -1 pad)."""
-    if index.packed is None:
-        raise ValueError("retrieve_topk_pallas requires a packed index")
-    if index.metric != "cosine":
-        raise ValueError("retrieve_topk_pallas is cosine-only; use retrieve_topk")
-    if index.packed_scale is not None:
-        raise ValueError("per-row int8 slabs take packed_retrieve_core; use retrieve_topk")
-    q_buckets, _ = query_hashes(index, queries)
-    quantized = not index.packed.dtype.is_floating_point
-    scale_free = quantized and not int8_rerank and index.packed_gscale is not None
-    core_k = (
-        min(4 * top_k, index.sorted_rows.shape[0] * top_k)
-        if quantized and not scale_free else top_k
-    )
-    s, ids = packed_retrieve_pallas(
-        index.packed, index.packed_rows, index.bucket_starts, index.n_rows,
-        queries, q_buckets, core_k, per_table, strict=strict,
-        stage1_width=stage1_width, stage1_per_table=stage1_per_table,
-    )
-    if scale_free:
-        return s * index.packed_gscale, ids
-    if quantized:
-        return rerank_exact(corpus, index.metric, queries, ids, top_k)
-    return s, ids
+    with timing.span("retrieve"):
+        if index.packed is None:
+            raise ValueError("retrieve_topk_pallas requires a packed index")
+        if index.metric != "cosine":
+            raise ValueError("retrieve_topk_pallas is cosine-only; use retrieve_topk")
+        if index.packed_scale is not None:
+            raise ValueError("per-row int8 slabs take packed_retrieve_core; use retrieve_topk")
+        q_buckets, _ = query_hashes(index, queries)
+        quantized = not index.packed.dtype.is_floating_point
+        scale_free = quantized and not int8_rerank and index.packed_gscale is not None
+        core_k = (
+            min(4 * top_k, index.sorted_rows.shape[0] * top_k)
+            if quantized and not scale_free else top_k
+        )
+        s, ids = packed_retrieve_pallas(
+            index.packed, index.packed_rows, index.bucket_starts, index.n_rows,
+            queries, q_buckets, core_k, per_table, strict=strict,
+            stage1_width=stage1_width, stage1_per_table=stage1_per_table,
+        )
+        if scale_free:
+            return s * index.packed_gscale, ids
+        if quantized:
+            return rerank_exact(corpus, index.metric, queries, ids, top_k)
+        return s, ids
 
 
 def _in_blocks(fn, q_block: int, *per_query):
@@ -972,46 +981,47 @@ def retrieve_topk(
 
     -> (scores [q, top_k] descending, row ids [q, top_k], -1 pad): cosine
     similarity or negated euclidean distance, nearest first."""
-    if index.packed is None:
-        return _in_blocks(
-            lambda qs: _retrieve_topk_unpacked(index, qs, corpus, top_k, per_table,
-                                               filtered), q_block, queries)
-    if index.packed_aug_scale is not None:
+    with timing.span("retrieve"):
+        if index.packed is None:
+            return _in_blocks(
+                lambda qs: _retrieve_topk_unpacked(index, qs, corpus, top_k, per_table,
+                                                   filtered), q_block, queries)
+        if index.packed_aug_scale is not None:
+            q_buckets, q_detailed = query_hashes(index, queries)
+            core_k = 2 * top_k if int8_rerank else top_k
+            s, ids = packed_retrieve_pallas_euclid(
+                index.packed, index.packed_rows,
+                index.packed_detailed if filtered else None,
+                index.bucket_starts, index.n_rows, queries.shape[1], queries,
+                q_buckets, q_detailed if filtered else None,
+                index.packed_gscale, index.packed_aug_scale, core_k, per_table,
+            )
+            if not int8_rerank:
+                return s, ids
+            return rerank_exact(corpus, index.metric, queries, ids, top_k)
+        if (index.metric == "cosine" and index.packed_scale is None
+                and index.packed.shape[-1] % 128 == 0
+                and index.packed.shape[1] >= per_table + 160):
+            return retrieve_topk_pallas(
+                index, queries, corpus, top_k, per_table, int8_rerank=int8_rerank,
+                stage1_width=stage1_width, stage1_per_table=stage1_per_table,
+            )
+        quantized = not index.packed.dtype.is_floating_point
+        scale_free = quantized and not int8_rerank and index.packed_gscale is not None
+        core_k = (min(4 * top_k, index.sorted_rows.shape[0] * top_k)
+                  if quantized and not scale_free else top_k)
         q_buckets, q_detailed = query_hashes(index, queries)
-        core_k = 2 * top_k if int8_rerank else top_k
-        s, ids = packed_retrieve_pallas_euclid(
-            index.packed, index.packed_rows,
-            index.packed_detailed if filtered else None,
-            index.bucket_starts, index.n_rows, queries.shape[1], queries,
-            q_buckets, q_detailed if filtered else None,
-            index.packed_gscale, index.packed_aug_scale, core_k, per_table,
+        s, ids = packed_retrieve_core(
+            index.packed, index.packed_rows, index.packed_sqnorm,
+            index.packed_detailed if filtered else None, index.bucket_starts,
+            index.n_rows, index.metric, queries, q_buckets, q_detailed, core_k,
+            per_table, block_rows, packed_scale=index.packed_scale, q_block=q_block,
         )
-        if not int8_rerank:
+        if scale_free:
+            return s * index.packed_gscale, ids
+        if not quantized:
             return s, ids
         return rerank_exact(corpus, index.metric, queries, ids, top_k)
-    if (index.metric == "cosine" and index.packed_scale is None
-            and index.packed.shape[-1] % 128 == 0
-            and index.packed.shape[1] >= per_table + 160):
-        return retrieve_topk_pallas(
-            index, queries, corpus, top_k, per_table, int8_rerank=int8_rerank,
-            stage1_width=stage1_width, stage1_per_table=stage1_per_table,
-        )
-    quantized = not index.packed.dtype.is_floating_point
-    scale_free = quantized and not int8_rerank and index.packed_gscale is not None
-    core_k = (min(4 * top_k, index.sorted_rows.shape[0] * top_k)
-              if quantized and not scale_free else top_k)
-    q_buckets, q_detailed = query_hashes(index, queries)
-    s, ids = packed_retrieve_core(
-        index.packed, index.packed_rows, index.packed_sqnorm,
-        index.packed_detailed if filtered else None, index.bucket_starts,
-        index.n_rows, index.metric, queries, q_buckets, q_detailed, core_k,
-        per_table, block_rows, packed_scale=index.packed_scale, q_block=q_block,
-    )
-    if scale_free:
-        return s * index.packed_gscale, ids
-    if not quantized:
-        return s, ids
-    return rerank_exact(corpus, index.metric, queries, ids, top_k)
 
 
 def pack_dtype(name: str) -> torch.dtype:

@@ -23,6 +23,7 @@ import torch
 
 from crypto_rec_tpu_torch.ops.distances import cosine_similarity_matrix
 from crypto_rec_tpu_torch.ops.topk import masked_topk_desc, topn_indices
+from crypto_rec_tpu_torch.utils import timing
 
 _EPS = 1e-30
 # recommend's query block: the [b, P, c] f32 neighbour gather stays near
@@ -132,18 +133,23 @@ def recommend_topk_retrieved(
     top_n: int,
 ) -> Recommendation:
     """CF scoring over pre-retrieved unique neighbours (the fused-retrieval
-    form of get_P_closest + get_top_N_recom)."""
-    valid = neighbor_idx >= 0
-    idx = torch.clamp(neighbor_idx, min=0) * valid
-    predicted = predict_scores(queries, neighbors, sims, idx, valid)
-    return Recommendation(
-        predicted=predicted,
-        top_n=topn_indices(predicted, ~queries.known, top_n),
-        has_neighbors=torch.any(valid, dim=1),
-        sims=torch.where(valid, sims, float("-inf")),
-        neighbor_idx=neighbor_idx,
-        neighbor_valid=valid,
-    )
+    form of get_P_closest + get_top_N_recom).  Traced (`timing`): span "cf",
+    around "cf.predict" and "cf.topn"."""
+    with timing.span("cf"):
+        valid = neighbor_idx >= 0
+        idx = torch.clamp(neighbor_idx, min=0) * valid
+        with timing.span("cf.predict"):
+            predicted = predict_scores(queries, neighbors, sims, idx, valid)
+        with timing.span("cf.topn"):
+            top = topn_indices(predicted, ~queries.known, top_n)
+        return Recommendation(
+            predicted=predicted,
+            top_n=top,
+            has_neighbors=torch.any(valid, dim=1),
+            sims=torch.where(valid, sims, float("-inf")),
+            neighbor_idx=neighbor_idx,
+            neighbor_valid=valid,
+        )
 
 
 def recommend_from_ids(

@@ -49,6 +49,7 @@ import torch
 from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 from crypto_rec_tpu_torch.ops.topk import topk_desc
+from crypto_rec_tpu_torch.utils import timing
 
 ALIGN = 32         # window starts align down to this many rows
 WIN_ROUND = 128    # window length rounds up to a multiple of this
@@ -386,26 +387,48 @@ def slab_window_dots(
     CPU tensors take the plain version; CUDA tensors the tile-major Hopper
     kernel (`csrc/slabtile.cu`), scale included, at any row width
     (`card_geometry` holds its checks); its work list (`tile_plan`) runs
-    here on the device, inside K1's time."""
+    here on the device, inside K1's time.
+
+    Traced (`timing`): spans "k1.plan" (the checks, geometry and work list)
+    and "k1" (the launch; on the CPU the plain call), and, where the window
+    sizes are given, the counters "k1.lanes" and "k1.window_rows"
+    (`_count_lanes`)."""
+    if timing.tracing() and sizes is not None:
+        _count_lanes(packed, starts, sizes, per_table)
     if not packed.is_cuda:
-        return slab_window_dots_plain(
-            packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale
-        )
-    win, aligned, row0, head, size = card_geometry(
-        packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale)
-    q, T = starts.shape
-    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
-    if q == 0:
-        return dots, aligned
-    qv = queries.float().contiguous()
-    if qv.data_ptr() % 16:
-        qv = qv.clone()
-    scale = None if packed_scale is None else packed_scale.contiguous()
-    with torch.cuda.device(packed.device):
-        plan = tile_plan(packed, row0, head, size, win)
-    tile_launch(packed, qv, plan, dots, mask, scale)
+        with timing.span("k1"):
+            return slab_window_dots_plain(
+                packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale
+            )
+    with timing.span("k1.plan"):
+        win, aligned, row0, head, size = card_geometry(
+            packed, starts, sizes, queries, per_table, mask, shared_slab, packed_scale)
+        q, T = starts.shape
+        dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
+        if q == 0:
+            return dots, aligned
+        qv = queries.float().contiguous()
+        if qv.data_ptr() % 16:
+            qv = qv.clone()
+        scale = None if packed_scale is None else packed_scale.contiguous()
+        with torch.cuda.device(packed.device):
+            plan = tile_plan(packed, row0, head, size, win)
+    with timing.span("k1"):
+        tile_launch(packed, qv, plan, dots, mask, scale)
     slab_window_dots.launches += 1
     return dots, aligned
+
+
+def _count_lanes(packed, starts, sizes, per_table: int) -> None:
+    """Count one K1 call's lanes (q T win, a host int) as "k1.lanes" and
+    the lanes that hold rows of the query's own bucket window (each
+    window's size as `_geometry` clips it, summed on the device) as
+    "k1.window_rows"."""
+    win = window_len(per_table)
+    head = starts.to(torch.int32) - align_starts(starts, ALIGN, packed.shape[1] - win)
+    rows = torch.minimum(torch.clamp(sizes.to(torch.int32), max=per_table), win - head)
+    timing.count("k1.lanes", starts.numel() * win)
+    timing.count("k1.window_rows", torch.clamp(rows, min=0).sum(dtype=torch.int64))
 
 
 slab_window_dots.launches = 0
@@ -522,7 +545,8 @@ def slab_topk(
     q, L, win = dots.shape
     if not exact and (stage1_per_table or not stage1_width):
         kk = min(max(stage1_per_table or top_k, -(-top_k // L)), win)
-        s1, lane = window_topk(dots.reshape(q * L, win), kk)
+        with timing.span("s1"):
+            s1, lane = window_topk(dots.reshape(q * L, win), kk)
         s1 = s1.reshape(q, L * kk)
         l_base = torch.arange(L, device=dots.device)[None, :, None] * win
         pos1 = (l_base + lane.reshape(q, L, kk)).reshape(q, L * kk)
@@ -530,10 +554,12 @@ def slab_topk(
         m1 = min(L * top_k, L * win)
         if stage1_width:
             m1 = min(m1, max(stage1_width, top_k))
-        s1, pos1 = window_topk(dots.reshape(q, L * win), m1)
-    ids1 = lane_rows(pos1, aligned_starts, packed_rows, win)
-    ids1 = torch.where(s1 > float("-inf"), ids1, n_rows)
-    return _dedup_topk_pairs(s1, ids1, n_rows, top_k)
+        with timing.span("s1"):
+            s1, pos1 = window_topk(dots.reshape(q, L * win), m1)
+    with timing.span("dedup"):
+        ids1 = lane_rows(pos1, aligned_starts, packed_rows, win)
+        ids1 = torch.where(s1 > float("-inf"), ids1, n_rows)
+        return _dedup_topk_pairs(s1, ids1, n_rows, top_k)
 
 
 def _window_offsets(bucket_starts, q_buckets, per_table, salt=None):
@@ -606,9 +632,10 @@ def packed_retrieve_pallas(
     strict=False (production): maskless aligned-overfetch windows + the
     per-table stage 1.  strict=True: exact reference window semantics and
     an exact flat top-k, for parity."""
-    s0, sizes = _window_offsets(bucket_starts, q_buckets, per_table)
-    qv = queries.float()
-    qv = qv / torch.clamp(torch.sqrt(torch.sum(qv * qv, dim=1, keepdim=True)), min=1e-30)
+    with timing.span("windows"):
+        s0, sizes = _window_offsets(bucket_starts, q_buckets, per_table)
+        qv = queries.float()
+        qv = qv / torch.clamp(torch.sqrt(torch.sum(qv * qv, dim=1, keepdim=True)), min=1e-30)
     dots, a0 = slab_window_dots(packed, s0, sizes, qv, per_table, mask=strict,
                                 packed_scale=packed_scale)
     return slab_topk(dots, a0, packed_rows, n_rows, top_k, exact=strict,
@@ -660,9 +687,10 @@ def packed_retrieve_pallas_euclid(
     is the JAX function's."""
     if queries.shape[1] != d:
         raise ValueError(f"queries must be [q, {d}], got {tuple(queries.shape)}")
-    s0, sizes = euclid_window_offsets(bucket_starts, packed_detailed, q_buckets,
-                                      q_detailed, per_table)
-    q_aug = augment_queries(queries, aug_scale, packed.shape[2])
+    with timing.span("windows"):
+        s0, sizes = euclid_window_offsets(bucket_starts, packed_detailed, q_buckets,
+                                          q_detailed, per_table)
+        q_aug = augment_queries(queries, aug_scale, packed.shape[2])
     dots, a0 = slab_window_dots(packed, s0, sizes, q_aug, per_table, mask=False)
     rank, ids = slab_topk(dots, a0, packed_rows, n_rows, top_k, exact=False)
     return rank_to_distance(rank, ids, queries, gscale)

@@ -1,0 +1,7 @@
+"""Device-idle ms a traced request whose gaps fall inside the host's `retrieve` span."""
+
+from portbench import spans
+
+
+def read(rec):
+    return spans.idle_inside_ms(rec, "retrieve")

@@ -1250,3 +1250,98 @@ def test_signproj_kernel_equals_previous_build(prev_lib, n, d, k, L):
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(new, old)
+
+
+def _traced_paths(cuda, d=128):
+    """An int8 cosine index of 100,000 rows on the card and its two served
+    paths (CF: retrieve_topk_pallas + recommend_topk_retrieved; retrieval:
+    retrieve_topk with the exact rerank) as one request of 4,096 rows."""
+    from crypto_rec_tpu_torch.models.lsh import index as lsh_index
+    from crypto_rec_tpu_torch.models.lsh.hyperplane import CosineLsh
+    from crypto_rec_tpu_torch.models.rec import engine
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    n, k, L = 100_000, 9, 8
+    x = torch.randn(n, d, generator=g, device=cuda)
+    proj = torch.randn(d, L * k, generator=g, device=cuda)
+    idx = lsh_index.build_index(None, x, "cosine", k, L, family=CosineLsh(proj, k, L))
+    idx = lsh_index.pack_index(idx, x, dtype=torch.int8, pad=4096)
+    users = engine.RatingSet(ratings=x, known=x > 0.5, mean=x.mean(1))
+    rows = torch.randperm(n, generator=g, device=cuda)[:4096]
+
+    def request():
+        q = x[rows]
+        s, nb = lsh_index.retrieve_topk_pallas(idx, q, x, top_k=20, per_table=390,
+                                               int8_rerank=False, stage1_per_table=12)
+        qs = engine.RatingSet(ratings=q, known=users.known[rows], mean=users.mean[rows])
+        rec = engine.recommend_topk_retrieved(qs, users, s, nb, 5)
+        return (s, nb, rec.top_n, *lsh_index.retrieve_topk(idx, q, x, 10, per_table=390))
+
+    return request
+
+
+def _cuda_profile():
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
+
+
+def test_tracing_records_stream_ms(cuda):
+    """Traced, every span of both paths has a device-stream time, K1's
+    stream ms are at least the device time of its kernel in the same calls,
+    and the outputs equal the untraced ones."""
+    from crypto_rec_tpu_torch.utils import timing
+
+    request = _traced_paths(cuda)
+    off = request()
+    torch.cuda.synchronize()
+    timing.reset()
+    with _cuda_profile() as prof:
+        on = request()
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    snap = timing.snapshot()
+    spans = snap["spans"]
+    for path in ("retrieve", "retrieve/hash", "retrieve/windows", "retrieve/k1.plan",
+                 "retrieve/k1", "retrieve/s1", "retrieve/dedup", "retrieve/rerank",
+                 "cf", "cf/cf.predict", "cf/cf.topn"):
+        assert spans[path]["stream_ms"] > 0, path
+    assert spans["retrieve"]["stream_ms"] > spans["retrieve/k1"]["stream_ms"]
+    assert snap["launches"]["slab_window_dots"] == 2 and snap["launches"]["window_topk"] >= 2
+    k1_device_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       and "tile_dots" in e.name()) / 1e6
+    assert k1_device_ms > 0
+    # CUDA events resolve to about half a microsecond at each end
+    assert spans["retrieve/k1"]["stream_ms"] >= k1_device_ms - 2 * 2e-3
+    lanes, rows = snap["counters"]["k1.lanes"], snap["counters"]["k1.window_rows"]
+    assert lanes == 2 * 4096 * 8 * 512 and 0 < rows <= lanes
+
+
+def test_tracing_adds_no_synchronise(cuda):
+    """A traced request makes no more synchronising calls than an untraced
+    one (torch's sync debug mode warns at each)."""
+    import warnings
+
+    from crypto_rec_tpu_torch.utils import timing
+
+    request = _traced_paths(cuda)
+    request()
+    torch.cuda.synchronize()
+
+    def syncs():
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                request()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum("synchroniz" in str(x.message) for x in w)
+
+    untraced = syncs()
+    timing.reset()
+    with _cuda_profile():
+        traced = syncs()
+    assert timing.snapshot()["spans"]["retrieve"]["calls"] == 2
+    assert traced <= untraced
