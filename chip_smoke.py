@@ -136,7 +136,11 @@ engines, in twenty-five phases; each phase raises on failure:
      version's; (c) the program's 15 coins (phase 13's dataset):
      ten_fold_mae fused beside mask, and candidate_ids_scored on f32
      slabs (K1 at d = 15, its f32 body), card against CPU, and on int8
-     slabs (rows of 15 B: K1's chunked FFMA body); then S1 on
+     slabs (rows of 15 B: K1's tensor-core body in 4-element pieces); (d)
+     K1's bodies off those paths: the CF cell's geometry (73,421 x 100,
+     L = 8, window 287, int8: 4-byte words), counted, and bf16 rows of
+     200 B on its windows (shifted words), then f32 d = 384 (FFMA in
+     d-chunks), each against its plain version; then S1 on
      tied rows at [R, 40,960] and [R, 131,072] k = 40 and [R, 8,192]
      k = 2,048, bit for bit against topk_desc.  Times: CUDA events and
      the profiler's device time of each kernel, with its bound.
@@ -2464,12 +2468,17 @@ def phase22(corpus, queries, true_idx, q_known, q_mean, single_recall, single_qp
 # 960 (p-stable k = 5, L = 4, w scaled with sqrt(d) from phase 9's 20 to
 # 55, augmented int8 slabs of d_aug = 1,024); (c) the program's 15 coins
 # (phase 13's dataset): ten_fold_mae on the fused and mask engines, and
-# candidate_ids_scored on f32 and int8 slabs (K1 at d = 15).
+# candidate_ids_scored on f32 and int8 slabs (K1 at d = 15); (d) K1's
+# bodies the paths above leave out: the CF cell's geometry
+# (cf-jester-73k-100: int8 and bf16 d = 100) and f32 past d = 256.
 WIDE = dict(n=1_000_000, q=8192, oracle_q=1024, floor=0.90,
             cos=dict(d=1536, k=13, L=8, per_table=488, cube_k=13, probes=40,
                      per_probe=992, cube_q=2048),
             euc=dict(d=960, k=5, L=4, w=55.0, div=4, per_table=768),
             cv=dict(budget=64, per_table=256),
+            jester=dict(n=73_421, d=100, k=9, L=8, per_table=287, pad=4096, stage1=12,
+                        floor=0.99),
+            ffma=dict(n=200_000, d=384, k=10, L=4, per_table=256, q=2048),
             s1=((40960, 40, 1600), (131072, 40, 512), (8192, 2048, 2048)),
             s1_cpu_rows=64)
 KERNEL_NAMES = dict(slab_window_dots="tile_dots", signproj_bucket_ids="signproj_kernel",
@@ -2499,18 +2508,21 @@ def device_ms(fn, names, reps=5):
     return us / 1e3 / reps
 
 
-def wide_k1(label, packed, s0, sizes, qk, per_table, shared):
+def wide_k1(label, packed, s0, sizes, qk, per_table, shared, body=None):
     """K1 on a wide path's own windows: against its plain version on every
     window (both masks), then timed (events, beside the row-wise body where
     it runs and the plain version) with the profiler's device time and the
-    bound."""
+    bound.  body: the kernel name the call must launch (its device time is
+    then that kernel's alone), or None."""
     e_err = k1_check(label, packed, s0, sizes, qk, per_table, shared)
     e = k1_time(label, packed, s0, sizes, qk, per_table, shared, rounds=3)
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
 
     e["device_ms"] = device_ms(lambda: slab_window_dots(packed, s0, sizes, qk, per_table,
                                                         mask=False, shared_slab=shared),
-                               KERNEL_NAMES["slab_window_dots"])
+                               body or KERNEL_NAMES["slab_window_dots"])
+    if body is not None and not e["device_ms"] > 0:
+        raise AssertionError(f"K1 {label}: no {body} kernel ran")
     e["max_abs_err"] = e_err
     k1_line(25, e, e_err)
     log(f"phase 25 K1 {label}: device time of the kernel {e['device_ms']:.3f} ms a call "
@@ -2683,7 +2695,7 @@ def wide_program(ds):
     f32 slabs of the users (d = 15, counted: K2, K1 in its f32 body, S1),
     its sets against the CPU's (equal, or equal scores where they differ),
     and on int8 slabs of the same index (rows of 15 B, not 16-byte
-    aligned: K1's chunked FFMA body, counted); K1 against its plain
+    aligned: K1's tensor-core body in 4-element pieces, counted); K1 against its plain
     version on each call's windows."""
     from crypto_rec_tpu_torch.config import load_config
     from crypto_rec_tpu_torch.io.native import read_header_p, score_tweets_native
@@ -2765,13 +2777,78 @@ def wide_program(ds):
     wide_launches("(c) candidate_ids_scored, int8 d = 15", launches_int8,
                   ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
     s1_check_kept(25)
-    k1.append(wide_k1(f"(c) candidate sets, int8 d = 15 (chunked FFMA body: rows not "
+    k1.append(wide_k1(f"(c) candidate sets, int8 d = 15 (tensor-core body: rows not "
                       f"16-byte aligned), q = {qv.shape[0]}",
                       pidx.packed, s0, sizes, qv, c["per_table"], False))
     del index, pidx, real, s0, sizes
     torch.cuda.empty_cache()
     return dict(mae=maes, cv_launches=cv_launches, launches=launches,
                 launches_int8=launches_int8, sets_differ=int(differ.sum()), k1=k1)
+
+
+def wide_k1_bodies():
+    """(d): the CF cell's geometry (cf-jester-73k-100: a planted 73,421 x
+    100 corpus, cosine k = 9, L = 8, window 287, int8 slabs padded by
+    4,096 rows): retrieve_topk_pallas over every user as the cell calls it
+    (int8_rerank off, 12 lanes a window), counted, each user's own row in
+    its top-10; K1 on the path's windows, the tensor-core body reading the
+    rows of 100 B as 4-byte words, and on bf16 slabs of the same index
+    (rows of 200 B: shifted words); then f32 d = 384 (the FFMA body in
+    d-chunks of 256) on a planted 200,000-row index's windows.  Each
+    against its plain version, each checked to launch its body."""
+    from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, pack_index, query_hashes, retrieve_topk_pallas,
+    )
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import _window_offsets
+
+    c = WIDE["jester"]
+    corpus, _, _ = planted_clustered_corpus(
+        torch.Generator(device=DEV).manual_seed(SEED + 270), c["n"], c["d"], 1, TOP_K)
+    index = build_index(gen(SEED + 271), corpus, "cosine", c["k"], c["L"])
+    pidx = pack_index(index, corpus, dtype=torch.int8, pad=c["pad"])
+    zero_counts()
+    scores, ids = retrieve_topk_pallas(pidx, corpus, corpus, TOP_K, per_table=c["per_table"],
+                                       int8_rerank=False, stage1_per_table=c["stage1"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wide_launches("(d) the CF cell's geometry, int8 d = 100", launches,
+                  ("signproj_bucket_ids", "slab_window_dots", "window_topk"))
+    s1_check_kept(25)
+    check_topk(scores, ids, c["n"], c["n"], "(d) the CF cell's geometry")
+    own = float((ids == torch.arange(c["n"], device=ids.device)[:, None]).any(1)
+                .float().mean())
+    log(f"phase 25 (d) the CF cell's geometry: retrieve_topk_pallas over all {c['n']} users "
+        f"(slabs {list(pidx.packed.shape)}, window {c['per_table']}): each user's own row "
+        f"in its top-{TOP_K} for {own:.4f} of them (floor {c['floor']})")
+    if own < c["floor"]:
+        raise AssertionError(f"(d) the CF cell's geometry: own row found for {own:.4f}")
+    del scores, ids
+    qv = unit(corpus)
+    qb, _ = query_hashes(pidx, qv)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, c["per_table"])
+    k1 = [wide_k1(f"(d) the CF cell's geometry, int8 d = 100 (tensor-core body, 4-byte "
+                  f"words), q = {c['n']}", pidx.packed, s0, sizes, qv, c["per_table"], False,
+                  body="tile_dots_mma")]
+    pidx = pack_index(index, corpus, dtype=torch.bfloat16, pad=c["pad"])
+    k1.append(wide_k1(f"(d) the CF cell's windows on bf16 slabs, d = 100 (tensor-core body, "
+                      f"shifted words), q = {c['n']}", pidx.packed, s0, sizes, qv,
+                      c["per_table"], False, body="tile_dots_mma"))
+    del corpus, index, pidx, qv, s0, sizes
+    f = WIDE["ffma"]
+    corpus, queries, _ = planted_clustered_corpus(
+        torch.Generator(device=DEV).manual_seed(SEED + 272), f["n"], f["d"], f["q"], TOP_K)
+    index = build_index(gen(SEED + 273), corpus, "cosine", f["k"], f["L"])
+    pidx = pack_index(index, corpus, dtype=torch.float32)
+    qv = unit(queries)
+    qb, _ = query_hashes(pidx, qv)
+    s0, sizes = _window_offsets(pidx.bucket_starts, qb, f["per_table"])
+    k1.append(wide_k1(f"(d) f32 d = {f['d']} (FFMA body, d-chunks of 256), q = {f['q']}",
+                      pidx.packed, s0, sizes, qv, f["per_table"], False,
+                      body="tile_dots_ffma"))
+    del corpus, queries, index, pidx, qv, s0, sizes
+    torch.cuda.empty_cache()
+    return dict(launches=launches, own_row_found=own, k1=k1)
 
 
 def wide_s1_tied():
@@ -2816,15 +2893,16 @@ def wide_launches_of(wide, name):
             "wide cosine cube": wide["cosine"]["cube"]["launches"][name],
             "wide euclidean LSH": wide["euclidean"]["launches"][name],
             "wide candidate sets f32 d = 15": wide["program"]["launches"][name],
-            "wide candidate sets int8 d = 15": wide["program"]["launches_int8"][name]}
+            "wide candidate sets int8 d = 15": wide["program"]["launches_int8"][name],
+            "wide CF cell geometry int8 d = 100": wide["bodies"]["launches"][name]}
 
 
 def phase25(ds):
-    """Wide rows: (a), (b) and (c) above, then S1 on tied rows past one
+    """Wide rows: (a), (b), (c) and (d) above, then S1 on tied rows past one
     launch.  -> results; each path's launches must show its kernels."""
     t0 = time.perf_counter()
     res = dict(cosine=wide_cosine(), euclidean=wide_euclidean(), program=wide_program(ds),
-               s1_tied=wide_s1_tied())
+               bodies=wide_k1_bodies(), s1_tied=wide_s1_tied())
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 25 wide rows: {res['seconds']:.1f} s")
     return res
@@ -3144,7 +3222,7 @@ def main() -> int:
     wide = phase25(ds)
     ds_dir.cleanup()
     wide_k1 = [wide["cosine"]["k1"], wide["cosine"]["cube"]["k1"],
-               wide["euclidean"]["k1"]] + wide["program"]["k1"]
+               wide["euclidean"]["k1"]] + wide["program"]["k1"] + wide["bodies"]["k1"]
 
     def path_launches(name):
         return {p: r["launches"][name] for p, r in paths.items()}
@@ -3275,7 +3353,8 @@ def main() -> int:
     for r in (cv, program):
         r.pop("k1", None)
         r.pop("k2")
-    for r in (wide["cosine"], wide["cosine"]["cube"], wide["euclidean"], wide["program"]):
+    for r in (wide["cosine"], wide["cosine"]["cube"], wide["euclidean"], wide["program"],
+              wide["bodies"]):
         r.pop("k1")
     wide["cosine"].pop("k2")
     wide.pop("s1_tied")

@@ -34,8 +34,13 @@
 //   and bf16 slab values are exact in bf16, so the three products summed in
 //   f32 keep f32 accuracy (two terms leave ~2^-16 relative).  The pairs'
 //   fields (pair id, row0, head, head + size) come pre-gathered in sorted
-//   order.  Rows must be 16-byte aligned (int8 d % 16 == 0, bf16 d % 8 ==
-//   0); the staged chunk rows are 128 bytes, so `swz` needs no whole row.
+//   order.  The staged chunk rows are 128 bytes whatever d, so `swz` needs
+//   no whole row.  Rows of whole 16-byte units (int8 d % 16 == 0, bf16 d %
+//   8 == 0) load a unit at a time.  Other rows (the recommender's 100
+//   items, its 15 coins) take instantiations of their own (`Load`): int8
+//   4-byte words where d % 4 == 0 and the slab allows it, else words
+//   funnel shifted into place, the columns past d zero in the rows and in
+//   the queries.  The arithmetic is the same.
 // - 8 warps, side by side along the tile's rows, compute the M x RT dots
 //   with mma.sync m16n8k16 bf16 (f32 accumulate), operands read by
 //   ldmatrix from rows whose 16-byte chunks are XOR-swizzled on the row's
@@ -55,9 +60,7 @@
 // - f32 slabs are not exact in bf16: they take f32 FFMA in the same item
 //   schedule (RT = 32, M = 32), a simple loop over shared memory, whole
 //   rows up to d = 256 and d-chunks of 256 past it (the FMAs run in d
-//   order either way).  The chunked body also takes int8 and bf16 rows
-//   that are not 16-byte aligned, element by element; its speed is not
-//   the point.
+//   order either way).
 // - Offsets into dots and the slab are 64-bit: q T win exceeds 2^31 on
 //   the euclidean MultiCube, and 1M rows x 8 tables x 1,536 B is 12.6 GB.
 // - The per-row scale (per-row int8 packs) is applied where each lane is
@@ -252,7 +255,63 @@ __device__ __forceinline__ void store_dots(const Args& a, const int (*s_meta)[64
   }
 }
 
-// ---- tensor-core path: int8 / bf16 slabs of any 16-byte aligned width ----
+// ---- rows that are not whole 16-byte units ----
+//
+// How the tensor-core body reads a chunk's rows:
+enum Load {
+  kLdUnit,    // 16-byte units (int8 d % 16 == 0, bf16 d % 8 == 0)
+  kLdWord,    // int8, d % 4 == 0 and the slab 4-byte aligned, as the
+              // recommender's 100 items are: each unit as four 4-byte loads
+  kLdShift,   // any other d or slab address: pieces from the aligned 4-byte
+              // words that hold them, funnel shifted into place
+};
+// A piece `pc` of a staged chunk row holds columns 4 pc .. 4 pc + 3 of the
+// chunk: 8 bytes of bf16 at element offset `piece_at` of a [rows][kDC]
+// block (half of a swizzled 16-byte chunk).  Elements past d are zero, and
+// no word that holds none of a piece's elements is read.  A load's result
+// is not used until the chunk's loads have all been issued (a load used at
+// once waits its whole latency, piece after piece: twice the time).
+
+__device__ __forceinline__ int piece_at(int r, int pc) {
+  return swz(r, pc >> 1, kDC) + (pc & 1) * 4;
+}
+
+// the aligned 4-byte word that holds byte `at`
+__device__ __forceinline__ const uint32_t* word_of(uintptr_t at) {
+  return reinterpret_cast<const uint32_t*>(at & ~uintptr_t(3));
+}
+
+// bf16 elements e0 .. e0 + n - 1 of the flat slab (1 <= n <= 4) as two
+// words of bf16 pairs, the elements from n on zero
+__device__ __forceinline__ uint2 bf16_piece(const uint8_t* slab, size_t e0, int n) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(slab + 2 * e0);
+  const int sh = at & 3, end = sh + 2 * n;      // sh is 0 or 2
+  const uint32_t* w = word_of(at);
+  const uint32_t w1 = end > 4 ? __ldg(w + 1) : 0u;
+  const uint32_t x0 = __funnelshift_r(__ldg(w), w1, 8 * sh);
+  const uint32_t x1 = __funnelshift_r(w1, end > 8 ? __ldg(w + 2) : 0u, 8 * sh);
+  return make_uint2(n < 2 ? x0 & 0xffffu : x0, n < 3 ? 0u : n < 4 ? x1 & 0xffffu : x1);
+}
+
+// query elements col .. col + 7 of a row of d (col < d), zero past d:
+// 16-byte loads where the rows are 16-byte aligned (rows16: d % 4 == 0),
+// else one by one
+__device__ __forceinline__ void query_tail(const float* qrow, int col, int d, bool rows16,
+                                           float4& u, float4& w) {
+  if (rows16) {
+    u = __ldg(reinterpret_cast<const float4*>(qrow + col));
+    w = col + 4 < d ? __ldg(reinterpret_cast<const float4*>(qrow + col) + 1)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = col + e < d ? __ldg(qrow + col + e) : 0.f;
+  u = make_float4(x[0], x[1], x[2], x[3]);
+  w = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// ---- tensor-core path: int8 / bf16 slabs of any width ----
 //
 // Tiles of 256 rows, each warp 32 of them against both m16 tiles of the 32
 // pairs; d in chunks of kDC = 64, two stage buffers of [256][64] rows and
@@ -260,13 +319,17 @@ __device__ __forceinline__ void store_dots(const Args& a, const int (*s_meta)[64
 // products and stored after them, so one barrier a chunk separates the
 // buffers' writers from their readers.  Columns past d are zero (rows by
 // cp.async's zero fill or a zero register, queries as zero terms); whole
-// slices past d are skipped.
-template <int DT>
+// slices past d are skipped.  LD (`Load`): how the rows are read; int8
+// values wait in registers (units, or shifted pieces) for the chunk's
+// products, bf16 pieces that are shifted are stored at once.
+template <int DT, int LD>
 __global__ void __launch_bounds__(kThreads, 2)
 tile_dots_mma(Args a) {
   constexpr int kStage = (kRT + 3 * kM) * kDC;            // bf16 values a stage
   constexpr int kUnits = DT == kI8 ? kRT * kDC / 16 / kThreads   // int8 16-byte units
                                    : kRT * kDC / 8 / kThreads;   // bf16 16-byte chunks
+  constexpr int kPieces = kRT * kDC / 4 / kThreads;             // 4-element pieces
+  static_assert(kThreads / (kDC / 4) == 16, "a thread's pieces lie 16 rows apart");
   const Item it = load_item(a, blockIdx.x);
   const int cnt = it.cnt;
   if (cnt == 0) return;
@@ -281,31 +344,82 @@ tile_dots_mma(Args a) {
   const bool q_live = slot < cnt;
   const float* qrow = a.queries + (size_t)(p / a.T) * d;
 
-  uint4 v[DT == kI8 ? kUnits : 1];
+  constexpr bool kAlign = LD == kLdUnit;
+  uint4 v[DT == kI8 && LD != kLdShift ? kUnits : 1];
+  uint32_t w8[DT == kI8 && LD == kLdShift ? kPieces : 1];
+  // pieces: the thread's piece of each of its rows (pc), and the columns
+  // the slices read (the rest of a chunk is never staged)
+  const int pc = threadIdx.x & 15, d16 = (d + 15) / 16 * 16;
   float4 qu = make_float4(0.f, 0.f, 0.f, 0.f), qw = qu;
   // chunk c's loads: int8 rows and the query into registers, bf16 rows by
   // cp.async straight into buffer c & 1
   auto load = [&](int c) {
     __nv_bfloat16* b_s = stage + (c & 1) * kStage;
+    if constexpr (kAlign) {
 #pragma unroll
-    for (int j = 0; j < kUnits; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      if constexpr (DT == kI8) {
+      for (int j = 0; j < kUnits; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        if constexpr (DT == kI8) {
+          const int r = i >> 2, col = c * kDC + (i & 3) * 16;
+          v[j] = make_uint4(0, 0, 0, 0);
+          if (tile0 + r < a.n_rows && col < d)
+            v[j] = __ldg(reinterpret_cast<const uint4*>(a.slab + (size_t)(tile0 + r) * d + col));
+        } else {
+          const int r = i >> 3, ch = i & 7, col = c * kDC + ch * 8;
+          const bool ok = tile0 + r < a.n_rows && col < d;
+          const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + col) * 2 : a.slab;
+          cp_async16(b_s + swz(r, ch, kDC), src, ok ? 16 : 0);
+        }
+      }
+    } else if constexpr (DT == kI8 && LD == kLdWord) {
+      // a 16-byte unit's four words, those past d zero
+#pragma unroll
+      for (int j = 0; j < kUnits; ++j) {
+        const int i = threadIdx.x + j * kThreads;
         const int r = i >> 2, col = c * kDC + (i & 3) * 16;
-        v[j] = make_uint4(0, 0, 0, 0);
-        if (tile0 + r < a.n_rows && col < d)
-          v[j] = __ldg(reinterpret_cast<const uint4*>(a.slab + (size_t)(tile0 + r) * d + col));
+        const uint32_t* src =
+            reinterpret_cast<const uint32_t*>(a.slab + (size_t)(tile0 + r) * d + col);
+        const bool ok = tile0 + r < a.n_rows;
+        v[j].x = ok && col < d ? __ldg(src) : 0u;
+        v[j].y = ok && col + 4 < d ? __ldg(src + 1) : 0u;
+        v[j].z = ok && col + 8 < d ? __ldg(src + 2) : 0u;
+        v[j].w = ok && col + 12 < d ? __ldg(src + 3) : 0u;
+      }
+    } else if (c * kDC + pc * 4 < d16) {
+      // n: the piece's elements before d (none past it); row j of the
+      // thread is r0 + 16 j
+      const int col = c * kDC + pc * 4, n = min(4, d - col), r0 = threadIdx.x >> 4;
+      auto e0 = [&](int j) { return (size_t)(tile0 + r0 + 16 * j) * d + col; };
+      auto live = [&](int j) { return n > 0 && tile0 + r0 + 16 * j < a.n_rows; };
+      if constexpr (DT == kI8) {
+        uint32_t hi[kPieces];
+#pragma unroll
+        for (int j = 0; j < kPieces; ++j) {
+          const uintptr_t at = reinterpret_cast<uintptr_t>(a.slab + e0(j));
+          w8[j] = live(j) ? __ldg(word_of(at)) : 0u;
+          hi[j] = live(j) && (at & 3) + n > 4 ? __ldg(word_of(at) + 1) : 0u;
+        }
+        const uint32_t keep = n >= 4 ? ~0u : (1u << 8 * max(n, 0)) - 1;
+#pragma unroll
+        for (int j = 0; j < kPieces; ++j) {
+          const uintptr_t at = reinterpret_cast<uintptr_t>(a.slab + e0(j));
+          w8[j] = __funnelshift_r(w8[j], hi[j], 8 * (at & 3)) & keep;
+        }
       } else {
-        const int r = i >> 3, ch = i & 7, col = c * kDC + ch * 8;
-        const bool ok = tile0 + r < a.n_rows && col < d;
-        const uint8_t* src = ok ? a.slab + ((size_t)(tile0 + r) * d + col) * 2 : a.slab;
-        cp_async16(b_s + swz(r, ch, kDC), src, ok ? 16 : 0);
+#pragma unroll
+        for (int j = 0; j < kPieces; ++j)
+          *reinterpret_cast<uint2*>(b_s + piece_at(r0 + 16 * j, pc)) =
+              live(j) ? bf16_piece(a.slab, e0(j), n) : make_uint2(0u, 0u);
       }
     }
     const int col = c * kDC + sub * 8;
     if (q_live && col < d) {
-      qu = __ldg(reinterpret_cast<const float4*>(qrow + col));
-      qw = __ldg(reinterpret_cast<const float4*>(qrow + col) + 1);
+      if constexpr (kAlign) {
+        qu = __ldg(reinterpret_cast<const float4*>(qrow + col));
+        qw = __ldg(reinterpret_cast<const float4*>(qrow + col) + 1);
+      } else {
+        query_tail(qrow, col, d, d % 4 == 0, qu, qw);
+      }
     } else {
       qu = qw = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -313,11 +427,21 @@ tile_dots_mma(Args a) {
   // ... and their stores to buffer c & 1
   auto store = [&](int c) {
     __nv_bfloat16* b_s = stage + (c & 1) * kStage;
-    if constexpr (DT == kI8) {
+    if constexpr (DT == kI8 && LD != kLdShift) {
 #pragma unroll
       for (int j = 0; j < kUnits; ++j) {
         const int i = threadIdx.x + j * kThreads;
         store_i8_unit(b_s, kDC, i >> 2, 2 * (i & 3), v[j]);
+      }
+    }
+    if constexpr (DT == kI8 && LD == kLdShift) {
+      if (c * kDC + pc * 4 < d16) {
+#pragma unroll
+        for (int j = 0; j < kPieces; ++j) {
+          const int r = (threadIdx.x >> 4) + 16 * j;
+          *reinterpret_cast<uint2*>(b_s + piece_at(r, pc)) = make_uint2(
+              bf16x2(i8(w8[j], 0), i8(w8[j], 1)), bf16x2(i8(w8[j], 2), i8(w8[j], 3)));
+        }
       }
     }
     if (q_live) store_terms(b_s + kRT * kDC, kDC, slot, sub, qu, qw);
@@ -390,13 +514,9 @@ tile_dots_f32(Args a) {
   for (int j = 0; j < 4; ++j) put(a, s_meta, m, tile0 + n0 + 8 * j, acc[j]);
 }
 
-// ---- f32 slabs past d = 256, and int8 / bf16 rows that are not 16-byte
-// aligned: the body above, d in chunks of kF32DC, each element upcast as
-// it is staged ----
-template <int DT>
+// ---- f32 slabs past d = 256: the body above, d in chunks of kF32DC ----
 __global__ void __launch_bounds__(kThreads)
 tile_dots_ffma(Args a) {
-  constexpr int kBytes = DT == kF32 ? 4 : DT == kBF16 ? 2 : 1;
   const Item it = load_item(a, blockIdx.x);
   const int cnt = it.cnt;
   if (cnt == 0) return;
@@ -406,6 +526,7 @@ tile_dots_ffma(Args a) {
   float* b_s = reinterpret_cast<float*>(smem_raw);   // [kF32RT][dc + 1]
   float* q_s = b_s + kF32RT * ds;                    // [kF32M][dc + 1]
   int (*s_meta)[64] = reinterpret_cast<int (*)[64]>(q_s + kF32M * ds);
+  const float* slab = reinterpret_cast<const float*>(a.slab);
   if ((int)threadIdx.x < cnt) {
     for (int f = 0; f < (a.mask ? kMeta : kHead); ++f)
       s_meta[f][threadIdx.x] = a.meta[(size_t)f * a.P + it.lo + threadIdx.x];
@@ -418,8 +539,7 @@ tile_dots_ffma(Args a) {
     if (c0 > 0) __syncthreads();                   // the last chunk's reads are done
     for (int i = threadIdx.x; i < kF32RT * w; i += kThreads) {
       const int r = i / w, k = i % w;
-      b_s[r * ds + k] = tile0 + r < a.n_rows
-          ? element<DT>(a.slab + (size_t)(tile0 + r) * d * kBytes, c0 + k) : 0.f;
+      b_s[r * ds + k] = tile0 + r < a.n_rows ? slab[(size_t)(tile0 + r) * d + c0 + k] : 0.f;
     }
     for (int i = threadIdx.x; i < kF32M * w; i += kThreads) {
       const int mm = i / w, k = i % w;
@@ -452,23 +572,26 @@ int launch(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
 template <int DT>
 int launch_mma(const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)2 * (kRT + 3 * kM) * kDC * 2 + kMeta * 64 * sizeof(int);
-  return launch(tile_dots_mma<DT>, a, smem, stream);
+  if (DT == kI8 ? a.d % 16 == 0 : a.d % 8 == 0)
+    return launch(tile_dots_mma<DT, kLdUnit>, a, smem, stream);
+  if (DT == kI8 && a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.slab) % 4 == 0)
+    return launch(tile_dots_mma<DT, kLdWord>, a, smem, stream);
+  return launch(tile_dots_mma<DT, kLdShift>, a, smem, stream);
 }
 
-template <int DT>
-int launch_ffma(const Args& a, cudaStream_t stream) {
+int launch_f32(const Args& a, cudaStream_t stream) {
   const int dc = a.d < kF32DC ? a.d : kF32DC;
   const size_t smem = (size_t)(kF32RT + kF32M) * (dc + 1) * 4 + kMeta * 64 * sizeof(int);
-  if (DT == kF32 && a.d <= kF32DC) return launch(tile_dots_f32, a, smem, stream);
-  return launch(tile_dots_ffma<DT>, a, smem, stream);
+  if (a.d <= kF32DC) return launch(tile_dots_f32, a, smem, stream);
+  return launch(tile_dots_ffma, a, smem, stream);
 }
 
 }  // namespace
 
 // rt / m: the tile rows and pairs per item the wrapper's work list used
 // (`tile_shape` in ops/kernels/slabscore.py); they must be this kernel's:
-// f32 slabs, and int8 / bf16 rows that are not 16-byte aligned, 32 and 32
-// (FFMA); any other int8 / bf16 width 256 and 32 (tensor cores).  scale: f32 [n_rows] or null.
+// f32 slabs 32 and 32 (FFMA); int8 / bf16 slabs of any width 256 and 32
+// (tensor cores).  scale: f32 [n_rows] or null.
 extern "C" int crt_slab_tile_dots(const void* slab, const void* queries,
                                   const void* scale,
                                   const void* meta, const void* item_tile,
@@ -485,11 +608,9 @@ extern "C" int crt_slab_tile_dots(const void* slab, const void* queries,
   if (n_items <= 0) return (int)cudaSuccess;
   if (d <= 0 || (dtype != kF32 && dtype != kBF16 && dtype != kI8))
     return (int)cudaErrorInvalidValue;
-  const bool aligned = dtype == kI8 ? d % 16 == 0 : d % 8 == 0;
-  if (dtype == kF32 || !aligned) {
+  if (dtype == kF32) {
     if (rt != kF32RT || m != kF32M) return (int)cudaErrorInvalidValue;
-    if (dtype == kF32) return launch_ffma<kF32>(a, s);
-    return dtype == kBF16 ? launch_ffma<kBF16>(a, s) : launch_ffma<kI8>(a, s);
+    return launch_f32(a, s);
   }
   if (rt != kRT || m != kM) return (int)cudaErrorInvalidValue;
   return dtype == kBF16 ? launch_mma<kBF16>(a, s) : launch_mma<kI8>(a, s);

@@ -205,21 +205,31 @@ def split_bf16x3(queries: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)], dim=1)
 
 
+TC_SHAPE = (256, 32)     # (RT, M) of the tensor-core body
+
+
 def rows_aligned(dtype: torch.dtype, d: int) -> bool:
-    """Whether slab rows of d values are whole 16-byte chunks (what the
-    tensor-core K1 bodies load; the FFMA body takes any row)."""
+    """Whether slab rows of d values are whole 16-byte chunks.  The
+    tensor-core K1 body then loads a chunk at a time from a slab that must
+    be 16-byte aligned (`check_k1`); other rows take its instantiations
+    that read int8 4-byte words (d % 4 == 0) or words shifted into place,
+    from any address."""
     return d * dtype.itemsize % 16 == 0
 
 
 def tile_shape(dtype: torch.dtype, d: int) -> Tuple[int, int]:
     """(RT tile rows, M pairs per work item) of the tile-major K1 body that
-    takes a slab dtype and row width (`crt_slab_tile_dots` checks the
-    pair): f32 slabs, and int8 / bf16 rows that are not 16-byte aligned,
-    the FFMA body, 32 and 32; other int8 / bf16 rows the tensor-core body,
-    which streams d in chunks, 256 and 32."""
-    if dtype == torch.float32 or not rows_aligned(dtype, d):
+    takes a slab dtype (`crt_slab_tile_dots` checks the pair): f32 slabs,
+    which are not exact in bf16, the FFMA body, 32 and 32; int8 / bf16
+    slabs the tensor-core body at every width d (it streams d in 64-wide
+    chunks, and reads rows that are not whole 16-byte chunks by 4-byte or
+    shifted words), 256 and 32.  No width is kept on FFMA: alone on the
+    card the tensor-core body beat the FFMA body that took such rows
+    before at the program's int8 d = 15 (0.190 against 0.398 ms) and at
+    the recommender's d = 100 (1.535 against 5.373 ms)."""
+    if dtype == torch.float32:
         return 32, 32
-    return 256, 32
+    return TC_SHAPE
 
 
 def tile_work(row0: torch.Tensor, win: int, n_rows: int, rt: int, m: int):
@@ -283,10 +293,13 @@ def tile_launch(packed: torch.Tensor, queries: torch.Tensor, plan,
     """Launch the tile-major kernel (`csrc/slabtile.cu`) on a plan from
     `tile_plan` and contiguous, 16-byte aligned f32 queries [q, d].
     Writes dots [q, T, win]; scale: contiguous f32 [L, n_pad] per-row
-    scales, or None."""
+    scales, or None.  Traced (`timing`): the counter "k1.tc_calls" counts
+    the launches of the tensor-core body."""
     meta, item_tile, item_lo, item_cnt = plan
     d = packed.shape[2]
     rt, m = tile_shape(packed.dtype, d)
+    if (rt, m) == TC_SHAPE:
+        timing.count("k1.tc_calls", 1)
     with torch.cuda.device(packed.device):
         err = build.library().crt_slab_tile_dots(
             packed.data_ptr(), queries.data_ptr(), None if scale is None else scale.data_ptr(),
@@ -318,10 +331,11 @@ def _check_tile_slab(packed: torch.Tensor) -> None:
 def check_k1(packed: torch.Tensor, starts: torch.Tensor, queries: torch.Tensor) -> None:
     """Raise on what K1's card route does not take, before any launch:
     slabs other than int8 / bf16 / f32, queries not [q, d], operands on
-    other devices, a slab that is not contiguous (or, for the tensor-core
-    bodies, not 16-byte aligned), more rows or (query, window) pairs than
-    int32 counts.  Any row width: the tensor-core body streams d in
-    chunks, the FFMA body takes rows of any alignment."""
+    other devices, a slab that is not contiguous (or, where its rows are
+    whole 16-byte chunks, not 16-byte aligned), more rows or (query,
+    window) pairs than int32 counts.  Any row width: the tensor-core body
+    streams d in chunks and loads rows of any alignment, the FFMA body
+    takes any f32 row."""
     if packed.dtype not in _DTYPE_CODE:
         raise TypeError(f"the slab kernel takes int8/bfloat16/float32 slabs, "
                         f"got {packed.dtype}")

@@ -1014,9 +1014,9 @@ WIDE_K1 = [(torch.int8, 384), (torch.int8, 1024), (torch.int8, 1536), (torch.int
 @pytest.mark.parametrize("dtype,d", WIDE_K1)
 def test_slab_kernel_wide_rows_match_plain(cuda, dtype, d, mask, shared):
     """The tensor-core body at the widths past d = 256 or off a multiple of
-    64 (int8 d % 16 == 0, bf16 d % 8 == 0) and the FFMA body (f32, and int8 / bf16 rows
-    not 16-byte aligned) against the plain version on every window, rtol
-    1e-5 / atol 1e-6 of the largest |dot|; one launch."""
+    64 (int8 and bf16; d = 100 in 4-element pieces) and the FFMA body (f32)
+    against the plain version on every window, rtol 1e-5 / atol 1e-6 of
+    the largest |dot|; one launch."""
     g = torch.Generator(device=cuda).manual_seed(d)
     T, n_pad, q, per_table = 4, 4096, 160, 488
     packed = _slabs(g, (T, n_pad, d), dtype, cuda)
@@ -1056,6 +1056,79 @@ def test_slab_kernel_wide_rows_per_row_scale(cuda):
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(got))
     assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-4 * float(scale.max()))
+
+
+# ---- K1's tensor-core body on rows that are not whole 16-byte chunks ----
+
+UNALIGNED_K1 = [(torch.int8, 15), (torch.int8, 36), (torch.int8, 100), (torch.int8, 200),
+                (torch.int8, 300), (torch.bfloat16, 100), (torch.bfloat16, 300),
+                (torch.bfloat16, 15)]
+
+
+@pytest.mark.parametrize("variant", ["plain", "scale", "shared", "offset"])
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("dtype,d", UNALIGNED_K1)
+def test_slab_kernel_unaligned_rows_match_plain(cuda, dtype, d, mask, variant):
+    """The tensor-core body on rows that are not whole 16-byte chunks (int8
+    d % 16 != 0, bf16 d % 8 != 0) against the plain version on every
+    window, rtol 1e-5 / atol 1e-6 of the largest |dot|: int8 read by
+    4-byte words (d % 4 == 0), bf16 and the other int8 rows (d = 15, or a
+    slab that starts one element past an aligned address) by words shifted
+    into place; with a per-row
+    scale or one shared slab; the last tile cut by the slab's end (T n_pad
+    = 16 mod 256); the row after the last query NaN, which no dot may
+    read.  One launch."""
+    from crypto_rec_tpu_torch.ops.kernels import slabscore as S
+
+    g = torch.Generator(device=cuda).manual_seed(d + 3)
+    T, n_pad, q, per_table = 4, 4100, 160, 488
+    T = 1 if variant == "shared" else T
+    packed = _slabs(g, (T, n_pad, d), dtype, cuda)
+    if variant == "offset":
+        flat = torch.empty(packed.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:] = packed.reshape(-1)
+        packed = flat[1:].view(T, n_pad, d)
+        assert packed.is_contiguous() and packed.data_ptr() % (4 * packed.element_size())
+    scale = _row_scales(g, T, n_pad, n_pad - 100, cuda) if variant == "scale" else None
+    nt = 4
+    starts = torch.randint(0, n_pad, (q, nt), generator=g, device=cuda, dtype=torch.int32)
+    starts[:20] = n_pad - 3
+    starts[20:60] = 1000
+    sizes = torch.randint(0, 600, (q, nt), generator=g, device=cuda, dtype=torch.int32)
+    qbuf = torch.randn(q + 1, d, generator=g, device=cuda)
+    qbuf[q] = float("nan")
+    qv = qbuf[:q]
+    args = (packed, starts, sizes, qv, per_table)
+    kw = dict(mask=mask, shared_slab=variant == "shared", packed_scale=scale)
+    assert S.tile_shape(dtype, d) == S.TC_SHAPE and not S.rows_aligned(dtype, d)
+    before = slab_window_dots.launches
+    got, a_got = slab_window_dots(*args, **kw)
+    want, a_want = slab_window_dots_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert slab_window_dots.launches == before + 1
+    assert torch.equal(a_got, a_want)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert not torch.isnan(got).any()
+    top = float(want[fin].abs().max())
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6 * top)
+
+
+def test_slab_kernel_at_the_jester_geometry(cuda):
+    """int8 d = 100 at the CF cell's geometry (L = 8 tables of 73,421 users
+    and a 4,096-row pad, window 287, unit queries as the cosine path gives
+    them), q = 8,192, mask off: within rtol 1e-5 / atol 1e-6 of the largest
+    |dot| of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(73421)
+    T, n_pad, d, q, per_table = 8, 73_421 + 4096, 100, 8192, 287
+    packed = _slabs(g, (T, n_pad, d), torch.int8, cuda)
+    starts = torch.randint(0, 73_421, (q, T), generator=g, device=cuda, dtype=torch.int32)
+    qv = torch.nn.functional.normalize(torch.randn(q, d, generator=g, device=cuda), dim=1)
+    got, a_got = slab_window_dots(packed, starts, None, qv, per_table, mask=False)
+    want, a_want = slab_window_dots_plain(packed, starts, None, qv, per_table, mask=False)
+    assert torch.equal(a_got, a_want)
+    top = float(want.abs().max())
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * top)
 
 
 def test_slab_kernel_raises_only_where_jax_or_the_cpu_path_raises(cuda):
@@ -1200,10 +1273,12 @@ def prev_slabscore(prev_lib):
                                      (torch.int8, 256), (torch.bfloat16, 128),
                                      (torch.bfloat16, 256), (torch.float32, 16),
                                      (torch.float32, 128), (torch.float32, 256),
-                                     (torch.float32, 100)])
+                                     (torch.float32, 100), (torch.int8, 1536),
+                                     (torch.float32, 384)])
 def test_slab_kernel_equals_previous_build(prev_lib, prev_slabscore, dtype, d, mask, scaled):
-    """K1 at d <= 256 (the widths the previous build took): each build on
-    the work list its own tree cuts gives the same dots, bit for bit."""
+    """K1 on rows of whole 16-byte chunks and on f32 rows (bodies the
+    previous build had too): each build on the work list its own tree cuts
+    gives the same dots, bit for bit."""
     from crypto_rec_tpu_torch.ops.kernels import slabscore as S
 
     cuda = torch.device("cuda")
@@ -1288,7 +1363,8 @@ def _cuda_profile():
 def test_tracing_records_stream_ms(cuda):
     """Traced, every span of both paths has a device-stream time, K1's
     stream ms are at least the device time of its kernel in the same calls,
-    and the outputs equal the untraced ones."""
+    and the outputs equal the untraced ones; both K1 calls are tensor-core
+    launches ("k1.tc_calls")."""
     from crypto_rec_tpu_torch.utils import timing
 
     request = _traced_paths(cuda)
@@ -1315,6 +1391,31 @@ def test_tracing_records_stream_ms(cuda):
     assert spans["retrieve/k1"]["stream_ms"] >= k1_device_ms - 2 * 2e-3
     lanes, rows = snap["counters"]["k1.lanes"], snap["counters"]["k1.window_rows"]
     assert lanes == 2 * 4096 * 8 * 512 and 0 < rows <= lanes
+    assert snap["counters"]["k1.tc_calls"] == 2
+
+
+@pytest.mark.parametrize("d", [100, 15])
+def test_tracing_counts_tensor_core_launches(cuda, d):
+    """At the recommender's 100 items and its 15 coins (int8 rows that are
+    not 16-byte aligned) every K1 launch of the served paths is a
+    tensor-core one ("k1.tc_calls" equals K1's launches), no FFMA kernel
+    runs, and untraced the counter records nothing."""
+    from crypto_rec_tpu_torch.utils import timing
+
+    request = _traced_paths(cuda, d)
+    timing.reset()
+    request()
+    torch.cuda.synchronize()
+    assert timing.snapshot()["counters"] == {}
+    with _cuda_profile() as prof:
+        request()
+        torch.cuda.synchronize()
+    snap = timing.snapshot()
+    assert snap["counters"]["k1.tc_calls"] == snap["launches"]["slab_window_dots"] >= 1
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert any("tile_dots_mma" in n for n in names)
+    assert not any("tile_dots_ffma" in n for n in names)
 
 
 def test_tracing_adds_no_synchronise(cuda):

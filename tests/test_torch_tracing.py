@@ -108,6 +108,45 @@ def test_on_spans_nest_inside_their_parents(corpus):
     assert 0 < snap["counters"]["k1.window_rows"] <= 2 * 96 * L * PER_TABLE
 
 
+def test_k1_counts_its_tensor_core_launches(monkeypatch):
+    """`tile_launch` counts "k1.tc_calls" once a launch of the tensor-core
+    body (int8 and bf16 slabs at any d, the rows of 100 items included)
+    and not for the FFMA body (f32), only while a profiler records.  The
+    library and the stream are stubbed: the count needs no card."""
+    import contextlib
+    import types
+
+    from crypto_rec_tpu_torch.ops.kernels import slabscore
+
+    launched = []
+    lib = types.SimpleNamespace(crt_slab_tile_dots=lambda *a: launched.append(a[-3:-1]) or 0)
+    monkeypatch.setattr(slabscore.build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+
+    def launch(dtype, d):
+        packed = torch.zeros(2, 512, d, dtype=dtype)
+        starts = torch.zeros(4, 2, dtype=torch.int32)
+        qv = torch.zeros(4, d)
+        win, _, row0, head, size = slabscore.card_geometry(packed, starts, None, qv, 100,
+                                                           False, False)
+        plan = slabscore.tile_plan(packed, row0, head, size, win)
+        slabscore.tile_launch(packed, qv, plan, torch.empty(4, 2, win), False)
+
+    cases = [(torch.int8, 100), (torch.bfloat16, 100), (torch.int8, 128), (torch.float32, 100)]
+    timing.reset()
+    for c in cases:
+        launch(*c)
+    assert timing.snapshot()["counters"] == {}
+    with _profile():
+        for c in cases:
+            launch(*c)
+    assert timing.snapshot()["counters"] == {"k1.tc_calls": 3}
+    # each launch took the body its count says: (rt, m) as the kernel checks them
+    assert launched == [(256, 32)] * 3 + [(32, 32)] + [(256, 32)] * 3 + [(32, 32)]
+
+
 def test_counters_sum_ints_and_tensors():
     timing.reset()
     with _profile():

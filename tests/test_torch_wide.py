@@ -60,7 +60,8 @@ def _slab_case(rng, dtype, T, n_pad, d, q):
 @pytest.mark.parametrize("mask", [True, False])
 @pytest.mark.parametrize("dtype,d", [("int8", 384), ("int8", 1024), ("bfloat16", 384),
                                      ("bfloat16", 1024), ("float32", 15),
-                                     ("float32", 100), ("float32", 384)])
+                                     ("float32", 100), ("float32", 384), ("int8", 100),
+                                     ("bfloat16", 100)])
 def test_k1_matches_jax_past_d256(dtype, d, mask):
     """K1 on slabs past d = 256, against the JAX kernel; the card route's
     checks take the shape and name the body that runs it."""
@@ -117,12 +118,15 @@ def stream_dots(terms, rows, d):
 
 @pytest.mark.parametrize("dtype,d", [("int8", 384), ("int8", 1536), ("int8", 80),
                                      ("bfloat16", 392), ("bfloat16", 1024),
-                                     ("int8", 128), ("bfloat16", 256)])
+                                     ("int8", 128), ("bfloat16", 256), ("int8", 100),
+                                     ("int8", 36), ("bfloat16", 100), ("int8", 15)])
 def test_k1_stream_schedule_against_plain(dtype, d):
     """The chunk loop on integer rows and queries equals the plain dots
     exactly; on unit queries it stays within K1's tolerance of them; and
     at d % 64 == 0, d <= 256 the chunked sums are one pass over whole rows
-    bit for bit (the same slices in the same order)."""
+    bit for bit (the same slices in the same order).  Rows that are not
+    whole 16-byte chunks (d = 15, 36, 100) take the same loop: the last
+    slice's columns past d are zero in the rows and in the query terms."""
     rng = np.random.default_rng(d)
     ints = torch.from_numpy(rng.integers(-127, 128, (96, d)).astype(np.int8)).to(DT[dtype])
     qi = torch.from_numpy(rng.integers(-3, 4, (32, d)).astype(np.float32))
@@ -394,8 +398,7 @@ def test_k1_card_checks_accept_what_jax_accepts(dtype):
             slabscore.card_geometry(packed[:1].contiguous(), starts, None, queries,
                                     win - 32, False, True)
             rt, m = slabscore.tile_shape(DT[dtype], d)
-            aligned = d * DT[dtype].itemsize % 16 == 0
-            assert (rt, m) == ((32, 32) if dtype == "float32" or not aligned else (256, 32))
+            assert (rt, m) == ((32, 32) if dtype == "float32" else (256, 32))
             seen += 1
     assert seen >= 40
 
