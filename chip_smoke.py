@@ -62,8 +62,9 @@ engines, in twenty-five phases; each phase raises on failure:
      bench_cv.py's population, cosine k = 10, L = 6, budget 512, fused):
      K1 on f32 slabs (d = 128, win 640) against its plain version on every
      window of one fold and timed, K2 at the fold's build; then one
-     counted ten_fold_mae: K1 and K2 must run, and the MAE must lie within
-     0.03 of the JAX package's 1.4802 (the mean predictor's MAE beside it);
+     counted ten_fold_mae: K1, K2 and the CF prediction kernel must run,
+     and the MAE must lie within 0.03 of the JAX package's 1.4802 (the
+     mean predictor's MAE beside it);
  15. candidate_ids_scored on phase 5's 2M x 128 int8 index at q = 8,192,
      budget 256, counted: K1 must run, set recall@10 against the planted
      truth >= 0.999;
@@ -140,7 +141,12 @@ engines, in twenty-five phases; each phase raises on failure:
      K1's bodies off those paths: the CF cell's geometry (73,421 x 100,
      L = 8, window 287, int8: 4-byte words), counted, and bf16 rows of
      200 B on its windows (shifted words), then f32 d = 384 (FFMA in
-     d-chunks), each against its plain version; then S1 on
+     d-chunks), each against its plain version; (e) the CF engine at the
+     CF cell's shape: the neighbours (P = 20) of all 73,421 users from
+     (d)'s path, recommend_topk_retrieved counted (the prediction kernel
+     `csrc/cfpredict.cu` and S1's top-5), the kernel against
+     cf_predict_plain (rtol / atol 1e-5) and the top-5 against the stable
+     sort's on the same predictions (equal); then S1 on
      tied rows at [R, 40,960] and [R, 131,072] k = 40 and [R, 8,192]
      k = 2,048, bit for bit against topk_desc.  Times: CUDA events and
      the profiler's device time of each kernel, with its bound.
@@ -451,6 +457,7 @@ CUBE_LEGS = (
 def _counters():
     from crypto_rec_tpu_torch.ops.kernels.binned import binned_dots
     from crypto_rec_tpu_torch.ops.kernels.blkslab import blk_window_dots
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict
     from crypto_rec_tpu_torch.ops.kernels.int4slab import slab_window_dots_int4
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_window_dots
@@ -460,7 +467,8 @@ def _counters():
     from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 
     return (signproj_bucket_ids, slab_window_dots, window_topk, binned_dots,
-            slab_window_dots_int4, load_floor, rounded_query_dots, i8_dots, blk_window_dots)
+            slab_window_dots_int4, load_floor, rounded_query_dots, i8_dots, blk_window_dots,
+            cf_predict)
 
 
 def zero_counts():
@@ -1015,7 +1023,8 @@ def phase12(corpus, queries, true_idx, smi):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"phase 12 launches (the six probes' runs): {launches}")
-    missing = [k for k, v in launches.items() if k != "signproj_bucket_ids" and not v]
+    missing = [k for k, v in launches.items()
+               if k not in ("signproj_bucket_ids", "cf_predict") and not v]
     if missing:
         raise AssertionError(f"phase 12: kernels not launched: {missing}")
     probe_r3_mask.report(res["mask"], PQ)
@@ -1264,7 +1273,8 @@ def phase14():
     log(f"phase 14 ten_fold_mae fused ({n} x {c}, k={k} L={L} budget {budget}, top-"
         f"{CV['top_p']}): {wall:.2f} s wall; MAE {mae:.4f} (JAX package {CV_JAX_MAE}, "
         f"tolerance {CV_MAE_TOL}); mean predictor {base:.4f}; launches {launches}")
-    if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]):
+    if not (launches["slab_window_dots"] and launches["signproj_bucket_ids"]
+            and launches["cf_predict"]):
         raise AssertionError(f"10-fold CV: a kernel did not run: {launches}")
     check_s1("10-fold CV", launches)
     if abs(mae - CV_JAX_MAE) > CV_MAE_TOL:
@@ -2477,12 +2487,13 @@ WIDE = dict(n=1_000_000, q=8192, oracle_q=1024, floor=0.90,
             euc=dict(d=960, k=5, L=4, w=55.0, div=4, per_table=768),
             cv=dict(budget=64, per_table=256),
             jester=dict(n=73_421, d=100, k=9, L=8, per_table=287, pad=4096, stage1=12,
-                        floor=0.99),
+                        floor=0.99, top_p=20, density=0.56),
             ffma=dict(n=200_000, d=384, k=10, L=4, per_table=256, q=2048),
             s1=((40960, 40, 1600), (131072, 40, 512), (8192, 2048, 2048)),
             s1_cpu_rows=64)
 KERNEL_NAMES = dict(slab_window_dots="tile_dots", signproj_bucket_ids="signproj_kernel",
-                    window_topk=("block_rows", "warp_rows", "radix_rows"))
+                    window_topk=("block_rows", "warp_rows", "radix_rows"),
+                    cf_predict="predict_rows")
 
 
 def device_ms(fn, names, reps=5):
@@ -2851,6 +2862,68 @@ def wide_k1_bodies():
     return dict(launches=launches, own_row_found=own, k1=k1)
 
 
+def wide_cf_engine():
+    """(e): the CF engine at the CF cell's shape (cf-jester-73k-100): the
+    P = 20 neighbours of all 73,421 users from (d)'s planted corpus and
+    index, known density 0.56; recommend_topk_retrieved counted (the
+    prediction kernel and S1's top-5 must run), the kernel against
+    cf_predict_plain (rtol / atol 1e-5: summation order only), the top-5
+    against the stable sort's on the same predictions (equal); the kernel
+    timed beside the plain version, with the profiler's device time and
+    its byte bound."""
+    from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+    from crypto_rec_tpu_torch.models.lsh.index import (
+        build_index, pack_index, retrieve_topk_pallas,
+    )
+    from crypto_rec_tpu_torch.models.rec.engine import RatingSet, recommend_topk_retrieved
+    from crypto_rec_tpu_torch.ops import topk
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict, cf_predict_plain
+
+    c = WIDE["jester"]
+    n, d, P = c["n"], c["d"], c["top_p"]
+    corpus, _, _ = planted_clustered_corpus(
+        torch.Generator(device=DEV).manual_seed(SEED + 270), n, d, 1, TOP_K)
+    pidx = pack_index(build_index(gen(SEED + 271), corpus, "cosine", c["k"], c["L"]),
+                      corpus, dtype=torch.int8, pad=c["pad"])
+    sims, nb = retrieve_topk_pallas(pidx, corpus, corpus, P, per_table=c["per_table"],
+                                    int8_rerank=False, stage1_per_table=c["stage1"])
+    del pidx
+    known = torch.rand(n, d, generator=torch.Generator(device=DEV).manual_seed(SEED + 274),
+                       device=DEV) < c["density"]
+    users = RatingSet(corpus, known, (corpus * known).sum(1) / known.sum(1).clamp(min=1))
+    zero_counts()
+    rec = recommend_topk_retrieved(users, users, sims, nb, TOP_N)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    label = f"(e) the CF engine at the CF cell's shape, q = {n}, P = {P}, c = {d}"
+    wide_launches(label, launches, ("cf_predict", "window_topk"))
+    valid = nb >= 0
+    args = (corpus, known, users.mean, corpus, users.mean, sims,
+            torch.clamp(nb, min=0) * valid, valid)
+    want = cf_predict_plain(*args)
+    err = float((rec.predicted - want).abs().max())
+    if not torch.allclose(rec.predicted, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label}: kernel against plain, max |err| {err:.3g}")
+    vals, idx = topk._topk_padded(torch.where(~known, rec.predicted, topk.NEG_INF), TOP_N)
+    if not torch.equal(rec.top_n, torch.where(vals > topk.NEG_INF, idx, -1)):
+        raise AssertionError(f"{label}: S1's top-{TOP_N} differs from the stable sort's")
+    e = rounds_ms(dict(ms=lambda: cf_predict(*args), plain_ms=lambda: cf_predict_plain(*args),
+                       prev_ms=None, library_ms=None), rounds=3)
+    e = with_bound(dict(e, geometry=label, max_abs_err=err),
+                   bounds.cf_predict_call(n, P, d, n, nb.element_size()))
+    e["device_ms"] = device_ms(lambda: cf_predict(*args), KERNEL_NAMES["cf_predict"])
+    log(f"phase 25 {label}: max |err| {err:.3g} against the plain version; top-{TOP_N} "
+        f"equal to the stable sort's; {e['ms']:.3f} ms a call (events; plain "
+        f"{e['plain_ms']:.3f}), device time of the kernel {e['device_ms']:.4f} ms (profiler), "
+        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+        f"{100 * e['bound_ms'] / e['device_ms']:.1f}% of it by device time; "
+        f"neighbour slots used {float(valid.float().mean()):.4f}; {CARD}")
+    del corpus, known, users, sims, nb, rec, want, args
+    torch.cuda.empty_cache()
+    return dict(launches=launches, kernel=e)
+
+
 def wide_s1_tied():
     """S1 past one launch on tied rows: [R, 40,960] and [R, 131,072] at
     k = 40 (two levels), [R, 8,192] at k = 2,048 (the radix select): equal
@@ -2902,7 +2975,7 @@ def phase25(ds):
     launch.  -> results; each path's launches must show its kernels."""
     t0 = time.perf_counter()
     res = dict(cosine=wide_cosine(), euclidean=wide_euclidean(), program=wide_program(ds),
-               bodies=wide_k1_bodies(), s1_tied=wide_s1_tied())
+               bodies=wide_k1_bodies(), cf=wide_cf_engine(), s1_tied=wide_s1_tied())
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 25 wide rows: {res['seconds']:.1f} s")
     return res
@@ -2933,6 +3006,7 @@ def main() -> int:
     )
     from crypto_rec_tpu_torch.models.rec.pipeline import lsh_phase
     from crypto_rec_tpu_torch.ops.kernels import build
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         _window_offsets, slab_topk, slab_window_dots, window_len,
@@ -3007,7 +3081,7 @@ def main() -> int:
     nset = RatingSet(ratings=corpus, known=n_known, mean=n_mean)
     q_known = torch.rand(max(BATCHES), D, generator=kq, device=dev) < 0.6
     q_mean = (queries_all * q_known).sum(1) / q_known.sum(1).clamp(min=1)
-    counters = (signproj_bucket_ids, slab_window_dots, window_topk)
+    counters = (signproj_bucket_ids, slab_window_dots, window_topk, cf_predict)
     S1["phase"] = 5
 
     # The counted main-path run: build, pack, retrieve and score one batch.
@@ -3307,6 +3381,22 @@ def main() -> int:
                   "same rounds; library_ms: torch.topk; row: the CF point, phase 5, "
                   "q = 8,192"),
     ]
+
+    cf_row = wide["cf"]["kernel"]
+    kernels.append(dict(
+        name="cf_predict", route="cuda", source="crypto_rec_tpu_torch/csrc/cfpredict.cu",
+        replaces="none: XLA ops at crypto_rec_tpu/models/rec/engine.py:61 (predict_scores)",
+        launches=launches["cf_predict"], max_abs_err=cf_row["max_abs_err"],
+        **{key: cf_row.get(key) for key in row_keys}, card=CARD, geometries=[cf_row],
+        path_launches=dict(path_launches("cf_predict"), phases_6_7=launches67["cf_predict"],
+                           program=program["launches"]["cf_predict"],
+                           cv=cv["launches"]["cf_predict"],
+                           program_fused=program_fused["launches"]["cf_predict"],
+                           **{f"sharded {m}": sharded[m]["launches"]["cf_predict"]
+                              for m in ("mp1", "mp4")},
+                           cf_cell_shape=wide["cf"]["launches"]["cf_predict"]),
+        note="the CF engine's prediction (engine.predict_scores on CUDA tensors); row: the "
+             "CF cell's shape, phase 25 (e), q = 73,421, P = 20, c = 100"))
 
     def probe_row(name, source, replaces, rows, **extra):
         """A probe kernel's row: launches from phase 12's counted run, the

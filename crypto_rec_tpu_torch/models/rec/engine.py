@@ -8,11 +8,13 @@ Reference math (reference lib/crypto_rec.hpp:213-345):
   (get_predicted_user_sim, crypto_rec.hpp:280-306);
 * top-N = the N highest-predicted unknown coins (crypto_rec.hpp:309-345).
 
-For a [q] batch of users: one similarity product, one masked top-k, one
-gather and one weighted contraction.  A zero |sim| sum predicts the user
-mean instead of the reference's NaN.  `recommend` runs in query blocks
-that bound the [b, P, c] neighbour gather (the clustering phases ask for
-P = every member).
+For a [q] batch of users: one similarity product, one masked top-k, the
+prediction and the top-N.  A zero |sim| sum predicts the user mean instead
+of the reference's NaN.  On CUDA tensors the prediction is one Hopper
+kernel (`ops/kernels/cfpredict.py`) and the top-N goes through S1
+(`ops/topk.topn_indices`); on CPU tensors both are plain torch, whose
+[b, P, c] neighbour gather `recommend`'s query blocks bound (the
+clustering phases ask for P = every member).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 import torch
 
 from crypto_rec_tpu_torch.ops.distances import cosine_similarity_matrix
+from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict
 from crypto_rec_tpu_torch.ops.topk import masked_topk_desc, topn_indices
 from crypto_rec_tpu_torch.utils import timing
 
@@ -68,19 +71,14 @@ def predict_scores(
     neighbor_valid: torch.Tensor,
 ) -> torch.Tensor:
     """get_predicted_user_sim over a batch: [q, P] selected neighbours ->
-    [q, c] predictions (known cells keep their current rating)."""
-    w = torch.where(neighbor_valid, sims, 0.0)                      # [q, P]
-    abs_sum = torch.sum(torch.abs(w), dim=1)                        # [q]
-    idx = neighbor_idx.long()
-    neigh_r = neighbors.ratings[idx]                                # [q, P, c]
-    neigh_mu = neighbors.mean[idx]                                  # [q, P]
-    centered = (neigh_r - neigh_mu[:, :, None]) * neighbor_valid[:, :, None]
-    main_sum = torch.einsum("qp,qpc->qc", w, centered)
-    delta = main_sum / torch.clamp(abs_sum, min=_EPS)[:, None]
-    pred_unknown = queries.mean[:, None] + torch.where(
-        (abs_sum > 0.0)[:, None], delta, 0.0
-    )
-    return torch.where(queries.known, queries.ratings, pred_unknown)
+    [q, c] predictions (known cells keep their current rating), through
+    `cf_predict` (the Hopper kernel on CUDA tensors, plain torch on CPU
+    ones).  Traced (`timing`): the counter "cf.neighbors", the slots that
+    hold a neighbour (sum of neighbor_valid, on the device)."""
+    if timing.tracing():
+        timing.count("cf.neighbors", neighbor_valid.sum(dtype=torch.int64))
+    return cf_predict(queries.ratings, queries.known, queries.mean, neighbors.ratings,
+                      neighbors.mean, sims, neighbor_idx, neighbor_valid)
 
 
 def recommend(
@@ -134,7 +132,8 @@ def recommend_topk_retrieved(
 ) -> Recommendation:
     """CF scoring over pre-retrieved unique neighbours (the fused-retrieval
     form of get_P_closest + get_top_N_recom).  Traced (`timing`): span "cf",
-    around "cf.predict" and "cf.topn"."""
+    around "cf.predict" (the prediction, and its counter "cf.neighbors")
+    and "cf.topn" (the selection)."""
     with timing.span("cf"):
         valid = neighbor_idx >= 0
         idx = torch.clamp(neighbor_idx, min=0) * valid

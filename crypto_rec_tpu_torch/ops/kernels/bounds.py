@@ -14,7 +14,9 @@ int8 x int8 -> int32), f32 FFMA 67 TFLOP/s (K2, whose hash parity rules out
 TF32; K1 on f32 slabs, which are not exact in bf16 and take FFMA; K1's
 other rows show it as the floor of a design without tensor cores).  P2's
 load_floor does no arithmetic: 0 operations, bound by its bytes alone, as
-is S1, the stage-1 selection (`s1_call`).
+is S1, the stage-1 selection (`s1_call`).  The CF prediction
+(`cf_predict_call`) runs f32 FFMA at well under an operation a byte: bound
+by its bytes.
 """
 
 from __future__ import annotations
@@ -129,3 +131,13 @@ def s1_call(R: int, m: int, k: int) -> dict:
     values and int64 indices written.  Its comparisons run on no unit with
     a published peak: bound by its bytes."""
     return bound(4.0 * R * m + 12.0 * R * k, 0.0, None)
+
+
+def cf_predict_call(q: int, P: int, c: int, n: int, id_bytes: int = 8) -> dict:
+    """The CF prediction's bound (`cf_predict`): the query ratings [q, c]
+    f32 and known [q, c] bool, the means [q] and [n] f32, the neighbour
+    table [n, c] f32, sims [q, P] f32, ids [q, P] and valid [q, P] bool read
+    once, the prediction [q, c] f32 written once; 2 q P c FLOP of f32 FFMA
+    (the gathered rows are re-reads of the table)."""
+    nbytes = q * c * (4 + 1 + 4) + 4 * q + n * c * 4 + 4 * n + q * P * (4 + id_bytes + 1)
+    return bound(nbytes, 2.0 * q * P * c, F32_FFMA)

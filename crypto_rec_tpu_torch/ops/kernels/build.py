@@ -66,6 +66,9 @@ _SIGNATURES = {
     "crt_window_topk_segments": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (values, out_v, out_i, scratch, R, m, k, P2, stream)
     "crt_window_topk_large": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (q_ratings, q_known, q_mean, n_ratings, n_mean, sims, ids, valid, out,
+    #  q, P, c, n, id_bytes, stream)
+    "crt_cf_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -20,10 +20,10 @@ tools/chip_probes/topk_select.py times it at every caller's shape beside
 `torch.topk` and the tie-exact selections that were slower.
 
 The stage-1 selections of K1's epilogue (`slab_topk`, the cubes'
-shared-slab epilogue, P6's `slab_topk_int4`) go through
-`ops/kernels/windowtopk.window_topk` instead: on the card the Hopper
-kernel S1 (`csrc/windowtopk.cu`), which returns exactly what `topk_desc`
-returns, and `topk_desc` itself on the CPU.
+shared-slab epilogue, P6's `slab_topk_int4`) and the CF engine's top-N
+(`topn_indices`) go through `ops/kernels/windowtopk.window_topk` instead:
+on the card the Hopper kernel S1 (`csrc/windowtopk.cu`), which returns
+exactly what `topk_desc` returns, and `topk_desc` itself on the CPU.
 
 The masked forms take k above the axis length: the reference keeps every
 candidate when there are fewer than P (get_P_closest truncates only when
@@ -56,11 +56,12 @@ def topk_asc(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _topk_padded(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """topk_desc over the last axis for any k: slots past the axis length
-    hold -inf at index 0."""
+def _topk_padded(values: torch.Tensor, k: int, select=topk_desc) -> Tuple[torch.Tensor,
+                                                                          torch.Tensor]:
+    """`select` (topk_desc's contract) over the last axis for any k: slots
+    past the axis length hold -inf at index 0."""
     m = values.shape[-1]
-    vals, idx = topk_desc(values, k)
+    vals, idx = select(values, min(k, m))
     if k <= m:
         return vals, idx
     return (torch.nn.functional.pad(vals, (0, k - m), value=NEG_INF),
@@ -83,6 +84,11 @@ def masked_topk_desc(
 
 def topn_indices(scores: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
     """Indexes of the n best masked scores, -1 where fewer than n are valid
-    (the reference returned garbage there, crypto_rec.hpp:322)."""
-    vals, idx = _topk_padded(torch.where(mask, scores, NEG_INF), n)
+    (the reference returned garbage there, crypto_rec.hpp:322).  The
+    selection is `window_topk`: on CUDA tensors S1, which takes float32
+    [R, m] scores and raises on others; on CPU tensors `topk_desc`."""
+    # windowtopk imports this module, so it is imported here, at the call
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+
+    vals, idx = _topk_padded(torch.where(mask, scores, NEG_INF), n, window_topk)
     return torch.where(vals > NEG_INF, idx, -1)

@@ -698,6 +698,172 @@ def test_topk_ties_go_to_the_lowest_index_on_cuda(cuda):
                            topk.topn_indices(v, mask, k))
 
 
+# ---- the CF engine's prediction kernel (csrc/cfpredict.cu) and its top-N ----
+
+# The kernel sums each user's valid slots in slot order, the plain version
+# contracts the gathered [q, P, c] rows in cuBLAS's order: they differ in
+# summation order only.
+CF_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _cf_case(dev, q, P, c, n, id_dtype=torch.int64, seed=0):
+    """cf_predict's operands on planted ratings (known density 0.56, sims
+    in [-1, 1) descending, a tenth of the slots -1 pads), with three edge
+    rows: user 0 has no valid neighbour, user 1 knows every coin, user 2's
+    similarities are all zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nr = torch.randn(n, c, generator=g, device=dev) * 3.0
+    nk = torch.rand(n, c, generator=g, device=dev) < 0.56
+    nm = (nr * nk).sum(1) / nk.sum(1).clamp(min=1)
+    qr = torch.randn(q, c, generator=g, device=dev) * 3.0
+    qk = torch.rand(q, c, generator=g, device=dev) < 0.56
+    qm = (qr * qk).sum(1) / qk.sum(1).clamp(min=1)
+    sims = torch.sort(torch.rand(q, P, generator=g, device=dev) * 2 - 1, dim=1,
+                      descending=True)[0]
+    ids = torch.randint(0, n, (q, P), generator=g, device=dev)
+    ids = torch.where(torch.rand(q, P, generator=g, device=dev) < 0.1, -1, ids)
+    ids[0] = -1
+    qk[1] = True
+    sims[2] = 0.0
+    valid = ids >= 0
+    idx = (torch.clamp(ids, min=0) * valid).to(id_dtype)
+    return [qr, qk, qm, nr, nm, sims, idx, valid]
+
+
+def _cf_edge_rows(got, args):
+    """The edge rows of `_cf_case` predict exactly: the user's mean where no
+    neighbour holds weight, the ratings where every coin is known."""
+    qr, qk, qm = args[:3]
+    for u in (0, 2):
+        assert torch.equal(got[u], torch.where(qk[u], qr[u], qm[u]))
+    assert torch.equal(got[1], qr[1])
+
+
+@pytest.mark.parametrize("q,P,c,n,id_dtype", [
+    (73_421, 20, 100, 73_421, torch.int64),      # the CF cell's shape
+    (5000, 1, 100, 4000, torch.int64),
+    (5000, 33, 100, 4000, torch.int32),
+    (300, 2000, 100, 4000, torch.int64),         # clustering's P = every member
+    (5000, 20, 15, 4000, torch.int64),           # the program's 15 coins: scalar columns
+    (5000, 20, 101, 4000, torch.int32),          # rows that are not float4 units
+    (2000, 20, 300, 3000, torch.int64),          # three column chunks
+])
+def test_cf_predict_kernel_matches_plain(cuda, q, P, c, n, id_dtype):
+    """The kernel against the plain version on the same card tensors, at
+    the CF cell's shape and past each of its limits (P of 1, 33 and 2,000
+    slots, c of 15, 101 and 300 coins, int32 ids); a run repeats bit for
+    bit."""
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict, cf_predict_plain
+
+    args = _cf_case(cuda, q, P, c, n, id_dtype, seed=q + P + c)
+    before = cf_predict.launches
+    got = cf_predict(*args)
+    want = cf_predict_plain(*args)
+    torch.cuda.synchronize()
+    assert cf_predict.launches == before + 1
+    torch.testing.assert_close(got, want, **CF_TOL)
+    _cf_edge_rows(got, args)
+    assert torch.equal(got, cf_predict(*args))
+
+
+@pytest.mark.parametrize("c", [100, 16])
+def test_cf_predict_kernel_on_unaligned_tables(cuda, c):
+    """Rating tables one float off a 16-byte boundary (views into a larger
+    buffer) take the scalar columns and predict what the plain version
+    does."""
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict, cf_predict_plain
+
+    args = _cf_case(cuda, 3000, 20, c, 2000, seed=c)
+    for i in (0, 3):                                 # query and neighbour ratings
+        buf = torch.empty(args[i].numel() + 1, device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16
+        args[i] = view
+    got = cf_predict(*args)
+    torch.testing.assert_close(got, cf_predict_plain(*args), **CF_TOL)
+    _cf_edge_rows(got, args)
+
+
+def test_cf_predict_kernel_poisons_an_out_of_range_id(cuda):
+    """A valid slot whose id lies outside [0, n) is never read: that user's
+    unknown coins come out NaN, known coins keep their ratings, and the
+    other users predict as before; the card's checks raise on operands the
+    kernel does not take."""
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict
+
+    args = _cf_case(cuda, 500, 20, 100, 400, seed=5)
+    want = cf_predict(*args)
+    for bad in (400, -3):
+        a = list(args)
+        a[6], a[7] = args[6].clone(), args[7].clone()
+        a[6][7, 3], a[7][7, 3] = bad, True
+        got = cf_predict(*a)
+        qr, qk = args[0], args[1]
+        assert torch.equal(got[7][qk[7]], qr[7][qk[7]]) and torch.isnan(got[7][~qk[7]]).all()
+        rest = torch.arange(500, device=cuda) != 7
+        assert torch.equal(got[rest], want[rest])
+    with pytest.raises(TypeError):
+        cf_predict(*[t.double() if i == 3 else t for i, t in enumerate(args)])
+    with pytest.raises(ValueError):
+        cf_predict(*[t.cpu() if i == 5 else t for i, t in enumerate(args)])
+
+
+def _stable_topn(scores, mask, n):
+    """ops/topk.topn_indices as it selected before S1: the stable sort."""
+    from crypto_rec_tpu_torch.ops import topk
+
+    vals, idx = topk._topk_padded(torch.where(mask, scores, topk.NEG_INF), n)
+    return torch.where(vals > topk.NEG_INF, idx, -1)
+
+
+@pytest.mark.parametrize("q,c,n", [(73_421, 100, 5), (5000, 15, 20), (4000, 100, 1),
+                                   (3000, 1500, 40)])
+def test_topn_indices_on_cuda_equals_the_stable_sort(cuda, q, c, n):
+    """The card's top-N (S1) returns exactly the stable sort's indices on
+    the same predictions: planted ties (scores on a few levels, NaN, +-0),
+    users who know every coin (-1 throughout), n > c (-1 pads)."""
+    from crypto_rec_tpu_torch.ops import topk
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+
+    g = torch.Generator(device=cuda).manual_seed(q + c)
+    levels = torch.tensor([-1.0, -0.0, 0.0, 0.5, 1.0, 2.0, float("nan")], device=cuda)
+    scores = levels[torch.randint(0, len(levels), (q, c), generator=g, device=cuda)]
+    scores[q // 2:] = torch.randn(q - q // 2, c, generator=g, device=cuda)
+    mask = torch.rand(q, c, generator=g, device=cuda) < 0.44
+    mask[::7] = False                                # users who know every coin
+    before = window_topk.launches
+    got = topk.topn_indices(scores, mask, n)
+    assert window_topk.launches == before + 1
+    assert torch.equal(got, _stable_topn(scores, mask, n))
+    assert (got[::7] == -1).all()
+    assert torch.equal(got.cpu(), topk.topn_indices(scores.cpu(), mask.cpu(), n))
+
+
+def test_recommend_topk_retrieved_at_the_jester_shape(cuda):
+    """The CF engine at the CF cell's shape (73,421 users, 100 coins,
+    P = 20 with -1 pads, top-5): one prediction kernel and one S1 launch;
+    the predictions hold to the plain version's and the top-N equals the
+    stable sort's on the same predictions."""
+    from crypto_rec_tpu_torch.models.rec import engine
+    from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict, cf_predict_plain
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+
+    q = 73_421
+    args = _cf_case(cuda, q, 20, 100, q, seed=21)
+    qr, qk, qm, nr, nm, sims, idx, valid = args
+    users = engine.RatingSet(ratings=nr, known=torch.rand_like(nr) < 0.56, mean=nm)
+    queries = engine.RatingSet(ratings=qr, known=qk, mean=qm)
+    ids = torch.where(valid, idx, -1)
+    k0, s0 = cf_predict.launches, window_topk.launches
+    rec = engine.recommend_topk_retrieved(queries, users, sims, ids, 5)
+    torch.cuda.synchronize()
+    assert cf_predict.launches == k0 + 1 and window_topk.launches == s0 + 1
+    torch.testing.assert_close(rec.predicted, cf_predict_plain(*args), **CF_TOL)
+    assert torch.equal(rec.top_n, _stable_topn(rec.predicted, ~qk, 5))
+    assert torch.equal(rec.has_neighbors, valid.any(1))
+
+
 def test_streamed_pass_overlaps_copy_and_compute(cuda):
     """One streamed pass with prefetch: the copy stream's chunk copies run
     while the compute stream retrieves (overlap_ms > 0, CUDA events), and
@@ -1364,7 +1530,8 @@ def test_tracing_records_stream_ms(cuda):
     """Traced, every span of both paths has a device-stream time, K1's
     stream ms are at least the device time of its kernel in the same calls,
     and the outputs equal the untraced ones; both K1 calls are tensor-core
-    launches ("k1.tc_calls")."""
+    launches ("k1.tc_calls"); "cf.neighbors" counts the CF request's
+    neighbours, and the prediction kernel ran."""
     from crypto_rec_tpu_torch.utils import timing
 
     request = _traced_paths(cuda)
@@ -1392,6 +1559,10 @@ def test_tracing_records_stream_ms(cuda):
     lanes, rows = snap["counters"]["k1.lanes"], snap["counters"]["k1.window_rows"]
     assert lanes == 2 * 4096 * 8 * 512 and 0 < rows <= lanes
     assert snap["counters"]["k1.tc_calls"] == 2
+    # the CF prediction ran as its kernel, over the slots that hold a neighbour
+    assert snap["counters"]["cf.neighbors"] == int((on[1] >= 0).sum())
+    assert any("predict_rows" in e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.mark.parametrize("d", [100, 15])
