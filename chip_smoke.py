@@ -43,10 +43,7 @@ engines, in twenty-five phases; each phase raises on failure:
      q = 8,192 (P6: 32,768): the binned, int4, variant and blocked kernels
      and K1 without the mask, each against its plain version (dots within
      rtol 1e-5 / atol 1e-4, i8_dot and load_floor exact, binned winners
-     equal away from near-ties) on 2,048 queries and timed against it
-     (the tile-major binned, int4, variant (load_floor, rounded_query,
-     i8_dot) and blocked kernels also against their previous row-wise
-     bodies in the same rounds);
+     equal away from near-ties) on 2,048 queries and timed against it;
      the recall of each retrieval path against its plain path (within
      0.002); then one counted run of the six probes' run_* functions;
  13. the recommender program: `crypto_rec_tpu_torch.main -validate` (default
@@ -121,8 +118,7 @@ engines, in twenty-five phases; each phase raises on failure:
      (integers, +-0, +-inf, NaN, -inf runs): equal to topk_desc bit for
      bit on the card and, on the first S1_CPU_ROWS rows, to topk_desc on
      the CPU (0 differing sets and orders); timed beside torch.topk (the
-     library yardstick), topk_desc and S1's previous design
-     (`window_topk_prev`, k serial arg-max rounds) with its byte bound.
+     library yardstick) and topk_desc with its byte bound.
      Phases 5, 9 and 10 also hold S1 against topk_desc on the dots their
      paths selected from, and time it there;
  25. wide rows, the public sets' shapes on planted corpora made from the
@@ -151,11 +147,9 @@ engines, in twenty-five phases; each phase raises on failure:
      k = 2,048, bit for bit against topk_desc.  Times: CUDA events and
      the profiler's device time of each kernel, with its bound.
 
-Times are CUDA-event medians of alternating rounds: K2 against its
-previous design (`signproj_bucket_ids_prev`), one torch.matmul(x, proj)
-(the library yardstick, TF32 off) and the plain version; K1 against its
-row-wise body (`slab_window_dots_rowwise`) and the plain version at every
-geometry of phases 4, 5, 8, 9 and 10 (the plain version is not timed on
+Times are CUDA-event medians of alternating rounds: K2 against one
+torch.matmul(x, proj) (the library yardstick, TF32 off) and the plain
+version; K1 against the plain version at every geometry of phases 4, 5, 8, 9 and 10 (the plain version is not timed on
 the two euclidean cubes, where a call takes seconds; phase 8 checks it
 at their geometry).  Each time stands beside its bound
 (`ops/kernels/bounds.py`: unique bytes over 3.35 TB/s against FLOPs over
@@ -260,12 +254,11 @@ def check_k2(corpus, proj, k, L):
     """K2 against its plain version on every corpus row.  A row may differ
     only where a projection lies within 1e-5 |x||r| of 0 (f32 summation
     order decides its sign); any other difference raises.  Then the kernel,
-    its previous design (where `prev_takes`: it keeps all of proj in shared
-    memory), one torch.matmul(x, proj) (the library yardstick, TF32 off)
-    and the plain version in alternating rounds."""
+    one torch.matmul(x, proj) (the library yardstick, TF32 off) and the
+    plain version in alternating rounds."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.signproj import (
-        prev_takes, signproj_bucket_ids, signproj_bucket_ids_plain, signproj_bucket_ids_prev,
+        signproj_bucket_ids, signproj_bucket_ids_plain,
     )
 
     n = corpus.shape[0]
@@ -284,8 +277,6 @@ def check_k2(corpus, proj, k, L):
     max_err = float((ids_k - ids_p).abs().max())
     del ids_k, ids_p
     t = rounds_ms({"ms": lambda: signproj_bucket_ids(corpus, proj, k, L),
-                   "prev_ms": ((lambda: signproj_bucket_ids_prev(corpus, proj, k, L))
-                               if prev_takes(corpus.shape[1], k, L) else None),
                    "library_ms": lambda: torch.matmul(corpus, proj),
                    "plain_ms": lambda: signproj_bucket_ids_plain(corpus, proj, k, L)})
     entry = dict(geometry=f"L = {L}, k = {k}, [{n}, {corpus.shape[1]}] x "
@@ -298,15 +289,9 @@ def check_k2(corpus, proj, k, L):
 def k2_line(phase, e):
     log(f"phase {phase} K2 signproj {e['geometry']}: {e['rows_differ']} rows differ "
         f"({e['rows_near_zero']} rows have a projection within 1e-5 |x||r| of 0); "
-        f"{ROUNDS} alternating rounds: kernel {e['ms']:.3f} ms, previous design "
-        f"{_ms(e['prev_ms'])}, torch.matmul {e['library_ms']:.3f}, plain "
-        f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
+        f"{ROUNDS} alternating rounds: kernel {e['ms']:.3f} ms, torch.matmul "
+        f"{e['library_ms']:.3f}, plain {e['plain_ms']:.3f}; bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
         f"{e['peak']}): {100 * e['share_of_bound']:.1f}% of it")
-
-
-def _ms(t, unit=""):
-    """A time, or what stands in for one the design cannot take."""
-    return "not timed (outside its limits)" if t is None else f"{t:.3f}{unit}"
 
 
 def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab, packed_scale=None):
@@ -341,24 +326,17 @@ def k1_check(label, packed, s0, sizes, qk, per_table, shared_slab, packed_scale=
 
 def k1_time(label, packed, s0, sizes, qk, per_table, shared_slab, plain=True,
             rounds=ROUNDS):
-    """The tile-major K1, its row-wise body (where `row_slab_takes`) and
-    (plain=True) the plain version, mask off, in alternating rounds on the
-    same windows, with the call's bound.  K1 has no one PyTorch call for a
+    """The tile-major K1 and (plain=True) the plain version, mask off, in
+    alternating rounds on the same windows, with the call's bound.  K1 has no one PyTorch call for a
     library yardstick (a gather and an einsum are two): library_ms is None."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        row_slab_takes, slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise,
-        window_len,
+        slab_window_dots, slab_window_dots_plain, window_len,
     )
 
     a = (packed, s0, sizes, qk, per_table)
     kw = dict(mask=False, shared_slab=shared_slab)
-    rowwise = row_slab_takes(packed.dtype, packed.shape[2])
-    if not rowwise:
-        log(f"K1 {label}: the row-wise body takes rows of d % 16 == 0 and at most "
-            f"2,048 B; not timed")
     t = rounds_ms({"ms": lambda: slab_window_dots(*a, **kw),
-                   "prev_ms": (lambda: slab_window_dots_rowwise(*a, **kw)) if rowwise else None,
                    "plain_ms": (lambda: slab_window_dots_plain(*a, **kw)) if plain else None},
                   rounds)
     entry = dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
@@ -372,7 +350,7 @@ def k1_line(phase, e, err=None):
     chk = "" if err is None else f"max |err| {err:.3g} (mask on/off, every window); "
     log(f"phase {phase} K1 {e['geometry']}: slab {e['slab']} {e['dtype']}, win "
         f"{e['win']}, {e['rows']} rows x {e['windows_per_row']} windows: {chk}"
-        f"tile-major {e['ms']:.3f} ms, row-wise {_ms(e['prev_ms'], ' ms')}, plain {plain}; "
+        f"tile-major {e['ms']:.3f} ms, plain {plain}; "
         f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}; f32 FFMA floor "
         f"{e['ffma_bound_ms']:.3f} ms): {100 * e['share_of_bound']:.1f}% of it")
 
@@ -380,9 +358,8 @@ def k1_line(phase, e, err=None):
 def k1_scale_time(label, packed, scale, s0, sizes, qk, per_table, rounds=ROUNDS):
     """K1 with the per-row scale, the same K1 call without it and the
     plain version with it, mask off, in alternating rounds on the same
-    windows, with the bound of the call with the scale.  The row-wise body
-    takes no scale: prev_ms is None; no one PyTorch call computes K1:
-    library_ms is None."""
+    windows, with the bound of the call with the scale.  No one PyTorch
+    call computes K1: library_ms is None."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         slab_window_dots, slab_window_dots_plain, window_len,
@@ -396,7 +373,7 @@ def k1_scale_time(label, packed, scale, s0, sizes, qk, per_table, rounds=ROUNDS)
                   rounds)
     entry = dict(geometry=label, slab=list(packed.shape), dtype=str(packed.dtype)[6:],
                  per_table=per_table, win=window_len(per_table), rows=int(s0.shape[0]),
-                 windows_per_row=int(s0.shape[1]), prev_ms=None, library_ms=None, **t)
+                 windows_per_row=int(s0.shape[1]), library_ms=None, **t)
     return with_bound(entry, bounds.k1_call(packed, s0, sizes, qk, per_table,
                                             packed_scale=scale))
 
@@ -761,10 +738,8 @@ def _same_recall(label, ids_k, ids_p, truth):
     return dict(recall=rk, plain_recall=rp)
 
 
-def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None, bound=None):
-    """Kernel and plain version (and the kernel's previous row-wise body:
-    K1's, P2's, P3's, P4's, P5's, P6's) in alternating rounds, with the
-    bound of the kernel's call on its windows: covered slab rows x
+def _timed_pair(kern, plain, p, row_bytes, windows=None, bound=None):
+    """Kernel and plain version in alternating rounds, with the bound of the kernel's call on its windows: covered slab rows x
     row_bytes, the queries and the kernel's outputs, 2 d FLOP a window lane
     on bf16 tensor cores.  windows: (row0 [q, L] absolute first rows, win)
     of the kernel's own geometry; None takes K1's (32-row aligned starts).
@@ -775,9 +750,7 @@ def _timed_pair(kern, plain, p, row_bytes, rowwise=None, windows=None, bound=Non
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import _geometry, window_len
 
-    t = rounds_ms({"ms": kern, "prev_ms": rowwise, "plain_ms": plain})
-    if rowwise is None:
-        del t["prev_ms"]
+    t = rounds_ms({"ms": kern, "plain_ms": plain})
     outs = [o for o in kern() if isinstance(o, torch.Tensor)]
     if bound is not None:
         return with_bound(dict(library_ms=None, **t), bound(outs))
@@ -794,7 +767,7 @@ def check_binned(p):
     where the bin's best and second-best dots differ by more than the
     tolerance; times at q = PQ; the recall of both retrieval paths."""
     from crypto_rec_tpu_torch.ops.kernels.binned import (
-        binned_dots, binned_dots_plain, binned_dots_rowwise, binned_topk,
+        binned_dots, binned_dots_plain, binned_topk,
     )
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         slab_window_dots_plain, window_len,
@@ -820,16 +793,15 @@ def check_binned(p):
         res = dict(geometry=f"{dname} nbins {nbins}, q = {PQ}", max_abs_err=err,
                    pos_near_ties=int((~clear).sum()),
                    **_timed_pair(lambda: binned_dots(*a), lambda: binned_dots_plain(*a),
-                                 p, p.packed.shape[2] * p.packed.element_size(),
-                                 rowwise=lambda: binned_dots_rowwise(*a)))
+                                 p, p.packed.shape[2] * p.packed.element_size()))
         win = window_len(p.per_table)
         ids = [binned_topk(*f(*a), p.packed_rows, win, p.n_rows, TOP_K)[1]
                for f in (binned_dots, binned_dots_plain)]
         res.update(_same_recall(f"P3 binned {dname} nbins {nbins}", *ids, p.true_idx))
         log(f"phase 12 binned_dots {dname} nbins {nbins}: max |err| {err:.3g} over "
             f"{CHECK_Q} queries, 0 winners differ ({res['pos_near_ties']} near-tie bins "
-            f"not compared); q={PQ}: tile-major {res['ms']:.3f} ms, row-wise "
-            f"{res['prev_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"not compared); q={PQ}: tile-major {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, bound "
             f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
         out.append(res)
     return out
@@ -840,7 +812,6 @@ def check_int4(p):
     recall of both retrieval paths."""
     from crypto_rec_tpu_torch.ops.kernels.int4slab import (
         repack_int4, slab_topk_int4, slab_window_dots_int4, slab_window_dots_int4_plain,
-        slab_window_dots_int4_rowwise,
     )
 
     p4 = repack_int4(p.packed)
@@ -854,14 +825,12 @@ def check_int4(p):
     res = dict(geometry=f"uint8 {list(p4.shape)}, q = {P6Q}", max_abs_err=err,
                **_timed_pair(lambda: slab_window_dots_int4(*a),
                              lambda: slab_window_dots_int4_plain(*a), p,
-                             p.packed.shape[2] / 2,
-                             rowwise=lambda: slab_window_dots_int4_rowwise(*a)))
+                             p.packed.shape[2] / 2))
     ids = [slab_topk_int4(*f(*a), p.packed_rows, p.n_rows, TOP_K)[1]
            for f in (slab_window_dots_int4, slab_window_dots_int4_plain)]
     res.update(_same_recall("P6 int4", *ids, p.true_idx))
     log(f"phase 12 slab_window_dots_int4: max |err| {err:.3g} over {CHECK_Q} queries; "
-        f"q={P6Q}: tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"q={P6Q}: tile-major {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
         f"({100 * res['share_of_bound']:.1f}%)")
     return res
 
@@ -870,15 +839,13 @@ def check_variants(p16, p8):
     """P2 / P4 variant modes, the tile-major kernels of probetile.cu,
     against their plain versions: load_floor output and XOR fold exact
     (bf16 and int8), rounded_query (bf16) within DOT_TOL, i8_dot (int8) bit
-    for bit; times at q = PQ, each beside its row-wise body in the same
-    rounds, and its bound (`bounds.variant_call`: load_floor no
+    for bit; times at q = PQ and each one's bound (`bounds.variant_call`: load_floor no
     operations, i8_dot int8 tensor cores with int8 queries); the recall of
     the i8_dot retrieval path against its plain path."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
     from crypto_rec_tpu_torch.ops.kernels.slabscore import slab_topk
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
         quantize_queries, slab_window_variant, slab_window_variant_plain,
-        slab_window_variant_rowwise,
     )
 
     out = []
@@ -902,7 +869,6 @@ def check_variants(p16, p8):
                    **_timed_pair(lambda: slab_window_variant(*a),
                                  lambda: slab_window_variant_plain(*a), p,
                                  p.packed.shape[2] * p.packed.element_size(),
-                                 rowwise=lambda: slab_window_variant_rowwise(*a),
                                  bound=lambda outs: bounds.variant_call(*a[:3], p.per_table,
                                                                         mode, outs)))
         if mode == "i8_dot":
@@ -911,21 +877,19 @@ def check_variants(p16, p8):
             res.update(_same_recall("P4 mxu_i8", *ids, p.true_idx))
         log(f"phase 12 slab_window_variant {mode} {dname}: max |err| {err:.3g} over "
             f"{CHECK_Q} queries{' (output and fold exact)' if len(got) == 3 else ''}; q={PQ}: "
-            f"tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
-            f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-            f"({100 * res['share_of_bound']:.1f}%, {res['bound_by']})")
+            f"tile-major {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%, {res['bound_by']})")
         out.append(res)
     return out
 
 
 def check_blk(p):
     """P5 blocked dots (the tile-major kernel) against the plain version
-    (DOT_TOL), times at q = PQ beside the row-wise body, and the bound on
+    (DOT_TOL), times at q = PQ, and the bound on
     P5's own windows: 128-row aligned starts blk0 * 128, blk_window_len
     lanes."""
     from crypto_rec_tpu_torch.ops.kernels.blkslab import (
-        B, _geometry_blk, blk_window_dots, blk_window_dots_plain, blk_window_dots_rowwise,
-        to_blk,
+        B, _geometry_blk, blk_window_dots, blk_window_dots_plain, to_blk,
     )
 
     dname = str(p.packed.dtype)[6:]
@@ -942,12 +906,10 @@ def check_blk(p):
     res = dict(geometry=f"{dname} {list(blk.shape)}, q = {PQ}", max_abs_err=err,
                **_timed_pair(lambda: blk_window_dots(*a), lambda: blk_window_dots_plain(*a),
                              p, p.packed.shape[2] * p.packed.element_size(),
-                             rowwise=lambda: blk_window_dots_rowwise(*a),
                              windows=(blk0 * B, win)))
     log(f"phase 12 blk_window_dots {dname}: max |err| {err:.3g} over {CHECK_Q} queries; "
-        f"q={PQ}: tile-major {res['ms']:.3f} ms, row-wise {res['prev_ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-        f"({100 * res['share_of_bound']:.1f}%)")
+        f"q={PQ}: tile-major {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
     return res
 
 
@@ -956,7 +918,7 @@ def check_k1_probes(p16, p8):
     against the plain version, times at q = PQ, and P4's vpu recall of
     both paths."""
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-        slab_topk, slab_window_dots, slab_window_dots_plain, slab_window_dots_rowwise,
+        slab_topk, slab_window_dots, slab_window_dots_plain,
     )
 
     out = []
@@ -969,15 +931,14 @@ def check_k1_probes(p16, p8):
         res = dict(geometry=f"mask off {dname}, q = {PQ}", max_abs_err=err,
                    **_timed_pair(lambda: slab_window_dots(*a, mask=False),
                                  lambda: slab_window_dots_plain(*a, mask=False), p,
-                                 p.packed.shape[2] * p.packed.element_size(),
-                                 rowwise=lambda: slab_window_dots_rowwise(*a, mask=False)))
+                                 p.packed.shape[2] * p.packed.element_size()))
         if p is p8:
             ids = [slab_topk(*f(*a, mask=False), p.packed_rows, p.n_rows, TOP_K)[1]
                    for f in (slab_window_dots, slab_window_dots_plain)]
             res.update(_same_recall("P4 vpu", *ids, p.true_idx))
         log(f"phase 12 K1 (P1 dots_nomask) {dname}: max |err| {err:.3g} over {CHECK_Q} "
-            f"queries; q={PQ}: tile-major {res['ms']:.3f} ms, row-wise "
-            f"{res['prev_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"queries; q={PQ}: tile-major {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, bound "
             f"{res['bound_ms']:.3f} ms ({100 * res['share_of_bound']:.1f}%)")
         out.append(res)
     return out
@@ -2101,9 +2062,6 @@ S1_BODIES = [
                 "32,768-lane segment, then crt_window_topk over the winners (phase 25)"),
     dict(source="crypto_rec_tpu_torch/csrc/windowtopk.cu", entry="crt_window_topk_large",
          serves="k > 1,024: a radix select a row, the winners sorted in scratch (phase 25)"),
-    dict(source="crypto_rec_tpu_torch/csrc/windowtopk_prev.cu", entry="crt_window_topk_prev",
-         serves="none on a path: the previous design (k serial arg-max rounds), "
-                "window_topk_prev, timed beside S1 (prev_ms)"),
 ]
 
 
@@ -2150,23 +2108,18 @@ def _s1_against_plain(v, k):
 
 
 def s1_time(v, k):
-    """S1, its previous design (prev_ms: k serial arg-max rounds,
-    csrc/windowtopk_prev.cu), torch.topk (the library yardstick) and
-    topk_desc (the plain version) on the same rows, alternating rounds,
+    """S1, torch.topk (the library yardstick) and topk_desc (the plain
+    version) on the same rows, alternating rounds,
     with S1's bound: on the first S1_TIME_ELEMS // m rows (the sort of more
     would not fit beside them), and then S1 alone on all the rows
     (all_rows_ms)."""
     from crypto_rec_tpu_torch.ops.kernels import bounds
-    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk, window_topk_prev
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
     from crypto_rec_tpu_torch.ops.topk import topk_desc
 
     full = v
     v = v[:max(1, S1_TIME_ELEMS // v.shape[1])]
-    from crypto_rec_tpu_torch.ops.kernels.windowtopk import MAX_K, MAX_M
-
     t = rounds_ms({"ms": lambda: window_topk(v, k),
-                   "prev_ms": ((lambda: window_topk_prev(v, k))
-                               if v.shape[1] <= MAX_M and k <= MAX_K else None),
                    "library_ms": lambda: torch.topk(v, k, dim=1),
                    "plain_ms": lambda: topk_desc(v, k)})
     R, m = v.shape
@@ -2179,9 +2132,8 @@ def s1_time(v, k):
 
 def s1_line(phase, what, e):
     log(f"phase {phase} S1 {what}, timed on [{e['R']}, {e['m']}] k = {e['k']}: {ROUNDS} "
-        f"alternating rounds: S1 {e['ms']:.3f} ms, previous design {_ms(e['prev_ms'])}, "
-        f"torch.topk {e['library_ms']:.3f}, topk_desc "
-        f"{e['plain_ms']:.3f}; bound {e['bound_ms']:.4f} ms (bytes): "
+        f"alternating rounds: S1 {e['ms']:.3f} ms, torch.topk {e['library_ms']:.3f}, "
+        f"topk_desc {e['plain_ms']:.3f}; bound {e['bound_ms']:.4f} ms (bytes): "
         f"{100 * e['share_of_bound']:.1f}% of it; S1 on all {e['all_rows']} rows "
         f"{e['all_rows_ms']:.3f} ms")
 
@@ -2521,9 +2473,8 @@ def device_ms(fn, names, reps=5):
 
 def wide_k1(label, packed, s0, sizes, qk, per_table, shared, body=None):
     """K1 on a wide path's own windows: against its plain version on every
-    window (both masks), then timed (events, beside the row-wise body where
-    it runs and the plain version) with the profiler's device time and the
-    bound.  body: the kernel name the call must launch (its device time is
+    window (both masks), then timed (events, beside the plain version)
+    with the profiler's device time and the bound.  body: the kernel name the call must launch (its device time is
     then that kernel's alone), or None."""
     e_err = k1_check(label, packed, s0, sizes, qk, per_table, shared)
     e = k1_time(label, packed, s0, sizes, qk, per_table, shared, rounds=3)
@@ -2909,7 +2860,7 @@ def wide_cf_engine():
     if not torch.equal(rec.top_n, torch.where(vals > topk.NEG_INF, idx, -1)):
         raise AssertionError(f"{label}: S1's top-{TOP_N} differs from the stable sort's")
     e = rounds_ms(dict(ms=lambda: cf_predict(*args), plain_ms=lambda: cf_predict_plain(*args),
-                       prev_ms=None, library_ms=None), rounds=3)
+                       library_ms=None), rounds=3)
     e = with_bound(dict(e, geometry=label, max_abs_err=err),
                    bounds.cf_predict_call(n, P, d, n, nb.element_size()))
     e["device_ms"] = device_ms(lambda: cf_predict(*args), KERNEL_NAMES["cf_predict"])
@@ -3307,8 +3258,7 @@ def main() -> int:
         raise AssertionError(f"S1 was not checked at the CF point {cf_shape}: "
                              f"{[e['shape'] for e in S1['dots']]}")
 
-    row_keys = ("ms", "prev_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "share_of_bound")
+    row_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "share_of_bound")
     kernels = [
         dict(name="signproj_bucket_ids", route="cuda",
              source="crypto_rec_tpu_torch/csrc/signproj.cu",
@@ -3377,9 +3327,7 @@ def main() -> int:
                   "the XLA selections jax.lax.approx_max_k / lax.top_k at "
                   "crypto_rec_tpu/ops/pallas/slabscore.py:486, :501, :503 and "
                   "models/lsh/hypercube.py:473, :674, :778; equal to topk_desc bit for "
-                  "bit; prev_ms: the previous design (csrc/windowtopk_prev.cu) in the "
-                  "same rounds; library_ms: torch.topk; row: the CF point, phase 5, "
-                  "q = 8,192"),
+                  "bit; library_ms: torch.topk; row: the CF point, phase 5, q = 8,192"),
     ]
 
     cf_row = wide["cf"]["kernel"]
@@ -3414,31 +3362,23 @@ def main() -> int:
                   note="P1 dots_nomask, and the vpu modes of P2 and P4: K1 with mask off"),
         probe_row("binned_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r3_binned.py:98", probe_checks["binned"],
-                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
-                       "(csrc/binned.cu) in the same rounds"),
+                  note="tile-major on the tensor cores"),
         probe_row("load_floor", "probetile.cu",
                   "benchmarks/experiments/probe_r3_split.py:156", variants[:2],
-                  note="mode load_floor (zeros), tile-major with no product (bf16, int8); "
-                       "prev_ms: the row-wise body (csrc/slabvariants.cu) in the same "
-                       "rounds"),
+                  note="mode load_floor (zeros), tile-major with no product (bf16, int8)"),
         probe_row("rounded_query_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r3_split.py:156", variants[2:3],
                   note="mode rounded_query (mxu_rep, mxu_tile), tile-major on the tensor "
-                       "cores; prev_ms: the row-wise body (csrc/slabvariants.cu) in the "
-                       "same rounds"),
+                       "cores"),
         probe_row("i8_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r3_final.py:99", variants[3:],
-                  note="mode i8_dot (mxu_i8), tile-major on the int8 tensor cores; "
-                       "prev_ms: the row-wise body (csrc/slabvariants.cu) in the same "
-                       "rounds"),
+                  note="mode i8_dot (mxu_i8), tile-major on the int8 tensor cores"),
         probe_row("blk_window_dots", "probetile.cu",
                   "benchmarks/experiments/probe_r4_blk.py:132", probe_checks["blk"],
-                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
-                       "(csrc/blkslab.cu) in the same rounds"),
+                  note="tile-major on the tensor cores"),
         probe_row("slab_window_dots_int4", "probetile.cu",
                   "benchmarks/experiments/probe_r5_int4.py:139", [probe_checks["int4"]],
-                  note="tile-major on the tensor cores; prev_ms: the row-wise body "
-                       "(csrc/int4slab.cu) in the same rounds"),
+                  note="tile-major on the tensor cores"),
     ]
     for r in (cv, program):
         r.pop("k1", None)

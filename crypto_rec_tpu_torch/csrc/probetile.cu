@@ -10,12 +10,11 @@
 // make_binned_kernel :44-83), probe_r4_blk.py (blk_window_dots,
 // pallas_call at :132; body make_blk_kernel :68-112) and probe_r5_int4.py
 // (slab_window_dots_int4, pallas_call at :139; body _make_kernel_int4
-// :68-110).  The functions are those of the row-wise bodies in
-// slabvariants.cu, binned.cu, blkslab.cu and int4slab.cu.
+// :68-110).
 //
 // What bounds them on the H100: the unique bytes.  Each slab row covered by
-// some window is needed once, but the row-wise bodies read every window
-// from memory: at the probe point (q = 8,192, L = 8, win 640) that is
+// some window is needed once, but a body with one block a window reads
+// every window from memory: at the probe point (q = 8,192, L = 8, win 640) that is
 // 5.4 GB of logical int8 windows (10.7 GB bf16) against 1.86 GB (3.7 GB) of
 // covered rows; P6 reads 10.7 GB of packed windows against ~1.1 GB and
 // unpacks every nibble once per window.  Reading a row once means dotting
@@ -26,8 +25,7 @@
 // the device.  The wrapper only sorts the (query, table) pairs by first
 // slab row (`tile_schedule`, ops/kernels/probetile.py): K1's torch work
 // list of ~25 small operations costs 0.3-0.9 ms of host dispatch at the
-// probe point on an H100 host (tools/chip_probes/binned_designs.py), more
-// than a third of the kernel.  Here `tile_bounds` gives each tile of RT
+// probe point on an H100 host, more than a third of the kernel.  Here `tile_bounds` gives each tile of RT
 // slab rows the range of sorted pairs whose windows meet it, and one block
 // takes one tile:
 // - it stages the tile in shared memory as bf16, once, by cp.async:

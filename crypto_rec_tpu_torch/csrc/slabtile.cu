@@ -2,8 +2,7 @@
 //
 // Replaces the TPU kernel crypto_rec_tpu/ops/pallas/slabscore.py
 // (slab_window_dots, pallas_call at :360; body _make_kernel_fused
-// :176-244).  Same function as the row-wise body in slabscore.cu: for
-// every (query, window) pair p, dots[p, lane] = query . slab[row0[p] + lane]
+// :176-244).  For every (query, window) pair p, dots[p, lane] = query . slab[row0[p] + lane]
 // for lane < win, times scale[row0[p] + lane] when a per-row scale is given
 // (the JAX package multiplies its kernel's output by the gathered scale
 // windows, slabscore.py:381-395), -inf outside [head, head + size) when
@@ -11,13 +10,13 @@
 //
 // What bounds it on the H100: the unique bytes, each slab row covered by a
 // window read once plus the dots written once (at the CF point ~1.9 GB of
-// slab and 0.17 GB of dots, ~0.62 ms at 3.35 TB/s).  The row-wise body
-// reads every window from memory, so it pays for the LOGICAL bytes instead
-// (5.4 GB there; 550 GB on the euclidean cube, where ~256 queries probe
-// each vertex).  Reading a row once means dotting it against every query
-// whose window covers it: a matrix product, 2 q T win d FLOP (1.2 TFLOP on
-// the euclidean cubes), which only the tensor cores finish under the byte
-// bound (16-18 ms at 67 TFLOP/s of f32 FFMA).
+// slab and 0.17 GB of dots, ~0.62 ms at 3.35 TB/s).  A body with one block
+// a window reads every window from memory, so it pays for the LOGICAL bytes
+// instead (5.4 GB there; 550 GB on the euclidean cube, where ~256 queries
+// probe each vertex).  Reading a row once means dotting it against every
+// query whose window covers it: a matrix product, 2 q T win d FLOP (1.2
+// TFLOP on the euclidean cubes), which only the tensor cores finish under
+// the byte bound (16-18 ms at 67 TFLOP/s of f32 FFMA).
 //
 // Design:
 // - The wrapper (ops/kernels/slabscore.py, plain torch on the device)

@@ -19,10 +19,10 @@
 // sorts that way.  The value written is the row's own (-0.0 stays -0.0).
 //
 // What bounds it on the H100: the bytes, R m 4 read once plus R k 12
-// written (CF leg [65,536, 640]: 0.05 ms at 3.35 TB/s).  The previous
-// design (csrc/windowtopk_prev.cu) paid one serial arg-max round over the
-// whole row per output key; this one finds each row's threshold in a
-// constant number of passes over registers and sorts only the winners:
+// written (CF leg [65,536, 640]: 0.05 ms at 3.35 TB/s).  k serial arg-max
+// rounds over the whole row (one per output key) cost k passes; this kernel
+// finds each row's threshold in a constant number of passes over registers
+// and sorts only the winners:
 //
 // 1. A lower bound lo on the k-th largest image, from maxima: each lane
 //    (thread) keeps its largest image.  Warp rows (m <= 1,024, k <= 32):
@@ -68,8 +68,8 @@
 // - k > 1,024: radix_rows below, a radix select of each row's threshold,
 //   the winners' keys sorted in global scratch.
 //
-// Its times beside the previous design's, torch.topk's and the bound:
-// tools/chip_probes/s1_designs.py and chip_smoke.py phase 24 (PERF.md).
+// Its times beside torch.topk's, topk_desc's and the bound: chip_smoke.py
+// phase 24 (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>

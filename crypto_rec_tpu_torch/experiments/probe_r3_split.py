@@ -12,16 +12,14 @@ N(0, 1) corpus (timing only, no recall), bf16 slabs, q = 8,192:
      rounded to bf16).  The probe's nbuf / q_tile sweeps are TPU pipeline
      knobs with no counterpart here.
 
-Each load floor runs beside the K1 of its own design in alternating rounds
-(`floor_vs_k1`): the row-wise floor (`slab_window_variant_rowwise`, one
-block per window, every window read from memory) beside K1's row-wise
-body, and the tile-major floor ("zeros" as the probe runs it: one block a
-tile of slab rows, each covered row read once) beside the tile-major K1
-("vpu").  It prints the medians, their spread, the per-round ratio floor /
-K1 of each design, and two rates: the logical window bytes (what a
-row-wise body reads) and the covered bytes (the slab rows some window
-covers, what a tile-major body reads) over each time.  Both floors write
-K1's [q, L, win] f32 output.
+The load floor runs beside K1 in alternating rounds (`floor_vs_k1`): the
+tile-major floor ("zeros" as the probe runs it: one block a tile of slab
+rows, each covered row read once) beside the tile-major K1 ("vpu").  It
+prints the medians, their spread, the per-round ratio floor / K1, and two
+rates: the logical window bytes (what a body with one block a window
+reads) and the covered bytes (the slab rows some window covers, what a
+tile-major body reads) over each time.  The floor writes K1's
+[q, L, win] f32 output.
 
     python -m crypto_rec_tpu_torch.experiments.probe_r3_split [--n N] [--q Q]
 """
@@ -36,40 +34,31 @@ from crypto_rec_tpu_torch.experiments import _common as C
 from crypto_rec_tpu_torch.models.lsh.index import pack_index
 from crypto_rec_tpu_torch.ops.kernels.bounds import covered_rows
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
-    _geometry, slab_topk, slab_window_dots, slab_window_dots_rowwise, window_len,
+    _geometry, slab_topk, slab_window_dots, window_len,
 )
-from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
-    PROBE_MODES, slab_window_variant, slab_window_variant_rowwise,
-)
+from crypto_rec_tpu_torch.ops.kernels.slabvariants import PROBE_MODES, slab_window_variant
 
 VARIANTS = ("zeros", "vpu", "mxu_rep", "mxu_tile")
 ROUNDS = 31
 
 
 def floor_vs_k1(p: C.ProbeIndex, rounds: int = ROUNDS) -> dict:
-    """Each load floor beside the K1 of its design (without the mask), in
-    `rounds` alternating rounds on the same windows: the row-wise floor
-    and K1's row-wise body, the tile-major floor and the tile-major K1;
-    each one's times, the per-round ratios floor / K1 of each design
-    (`ratio_rounds` row-wise, `tile_ratio_rounds` tile-major), and the
-    rates of logical window bytes and of covered slab bytes.  Works on
-    int8 and bf16 slabs."""
-    args = (p.packed, p.s0, p.sizes, p.qv, p.per_table)
-    floor_args = (p.packed, p.s0, p.qv, p.per_table, "load_floor")
+    """The tile-major load floor beside the tile-major K1 (without the
+    mask), in `rounds` alternating rounds on the same windows: each one's
+    times, the per-round ratios floor / K1 (`tile_ratio_rounds`), and the
+    rates of logical window bytes and of covered slab bytes.  Works on int8
+    and bf16 slabs."""
     times = C.timed_alternating({
-        "rowwise": lambda: slab_window_dots_rowwise(*args, mask=False),
-        "rowwise_floor": lambda: slab_window_variant_rowwise(*floor_args),
-        "zeros": lambda: slab_window_variant(*floor_args),
-        "vpu": lambda: slab_window_dots(*args, mask=False),
+        "zeros": lambda: slab_window_variant(p.packed, p.s0, p.qv, p.per_table,
+                                             "load_floor"),
+        "vpu": lambda: slab_window_dots(p.packed, p.s0, p.sizes, p.qv, p.per_table,
+                                        mask=False),
     }, p.packed.device, rounds)
-    row, row_floor = times["rowwise"], times["rowwise_floor"]
     floor, k1 = times["zeros"], times["vpu"]
-    res = dict(dtype=str(p.packed.dtype)[6:], rounds=rounds, rowwise_rounds_ms=row,
-               rowwise_floor_rounds_ms=row_floor, floor_rounds_ms=floor, k1_rounds_ms=k1,
-               ratio_rounds=None if row is None else [f / r for f, r in zip(row_floor, row)],
+    res = dict(dtype=str(p.packed.dtype)[6:], rounds=rounds, floor_rounds_ms=floor,
+               k1_rounds_ms=k1,
                tile_ratio_rounds=None if k1 is None else [f / k for f, k in zip(floor, k1)])
-    for key, xs in (("rowwise_ms", row), ("rowwise_floor_ms", row_floor),
-                    ("zeros_ms", floor), ("vpu_ms", k1)):
+    for key, xs in (("zeros_ms", floor), ("vpu_ms", k1)):
         res[key] = None if xs is None else statistics.median(xs)
     q, L, d = p.qv.shape[0], p.packed.shape[0], p.packed.shape[2]
     win = window_len(p.per_table)
@@ -78,8 +67,7 @@ def floor_vs_k1(p: C.ProbeIndex, rounds: int = ROUNDS) -> dict:
     row0 = _geometry(p.packed, p.s0, None, p.per_table, False)[2]
     covered_bytes = covered_rows(row0, win, L * p.packed.shape[1]) * row_bytes
     res["window_gb"], res["covered_gb"] = window_bytes / 1e9, covered_bytes / 1e9
-    for name, key in (("rowwise", "rowwise_ms"), ("rowwise_floor", "rowwise_floor_ms"),
-                      ("load_floor", "zeros_ms"), ("k1", "vpu_ms")):
+    for name, key in (("load_floor", "zeros_ms"), ("k1", "vpu_ms")):
         res[f"{name}_gbps"] = C.gbps(window_bytes, res[key])
         res[f"{name}_covered_gbps"] = C.gbps(covered_bytes, res[key])
     return res
@@ -87,17 +75,13 @@ def floor_vs_k1(p: C.ProbeIndex, rounds: int = ROUNDS) -> dict:
 
 def report_floor(res: dict) -> None:
     print(f"load floor vs K1 ({res['dtype']}, {res['rounds']} alternating rounds, "
-          f"median (min-max)): row-wise floor {C.spread(res['rowwise_floor_rounds_ms'])} "
-          f"ms, row-wise K1 {C.spread(res['rowwise_rounds_ms'])} ms, per-round ratio "
-          f"{C.spread(res['ratio_rounds'])}; tile-major floor "
-          f"{C.spread(res['floor_rounds_ms'])} ms, tile-major K1 "
-          f"{C.spread(res['k1_rounds_ms'])} ms, per-round ratio "
+          f"median (min-max)): tile-major floor {C.spread(res['floor_rounds_ms'])} ms, "
+          f"tile-major K1 {C.spread(res['k1_rounds_ms'])} ms, per-round ratio "
           f"{C.spread(res['tile_ratio_rounds'])}", flush=True)
     if res["load_floor_gbps"] is not None:
         rates = ", ".join(
             f"{label} {res[f'{name}_gbps']:.0f} / {res[f'{name}_covered_gbps']:.0f}"
-            for label, name in (("row-wise floor", "rowwise_floor"), ("row-wise K1", "rowwise"),
-                                ("tile-major floor", "load_floor"), ("tile-major K1", "k1")))
+            for label, name in (("tile-major floor", "load_floor"), ("tile-major K1", "k1")))
         print(f"GB/s of logical window bytes ({res['window_gb']:.2f} GB) / of covered slab "
               f"bytes ({res['covered_gb']:.2f} GB): {rates}", flush=True)
 

@@ -17,12 +17,9 @@ sorted by first row, and each tile's candidates combined into the query's
 bins with one 64-bit atomicMax on a key that orders by dot, then by the
 lowest row.  It takes int8 and bf16 slabs with d % 64 == 0 and d <= 256.
 A CPU tensor runs `binned_dots_plain`, the bin-max of K1's plain dots
-(any slab dtype, as the TPU probe casts to f32).  `binned_dots_rowwise`,
-the previous design, one block per query reading every window
-(`csrc/binned.cu`), stays compiled for side-by-side timing on the card;
-no probe path calls it.  `retrieve_binned` is plain torch: window
-offsets, binned dots, each bin's flat lane mapped back to its table and
-CSR row, then the dedup top-k.
+(any slab dtype, as the TPU probe casts to f32).  `retrieve_binned` is
+plain torch: window offsets, binned dots, each bin's flat lane mapped back
+to its table and CSR row, then the dedup top-k.
 """
 
 from __future__ import annotations
@@ -120,42 +117,6 @@ def binned_dots(
 
 
 binned_dots.launches = 0
-
-
-def binned_dots_rowwise(
-    packed: torch.Tensor,
-    starts: torch.Tensor,
-    queries: torch.Tensor,
-    per_table: int,
-    nbins: int = 128,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The previous design, one block per query reading every window
-    (`csrc/binned.cu`), kept so a run on the card can time it beside
-    `binned_dots` on the same inputs.  Same function and arguments (it also
-    takes f32 slabs); CPU tensors take the plain version."""
-    if not packed.is_cuda:
-        return binned_dots_plain(packed, starts, queries, per_table, nbins)
-    check_row_slab("binned_dots_rowwise", packed, starts, queries, _DTYPE_CODE)
-    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
-    q, T = starts.shape
-    d = packed.shape[2]
-    _check_bins(T, win, nbins)
-    qv = queries.float().contiguous()
-    row0 = row0.contiguous()
-    vals = torch.empty(q, nbins, dtype=torch.float32, device=packed.device)
-    pos = torch.empty(q, nbins, dtype=torch.int32, device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = build.library().crt_binned_dots(
-            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), vals.data_ptr(),
-            pos.data_ptr(), q, T, win, d, nbins, _DTYPE_CODE[packed.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "binned_dots_rowwise")
-    binned_dots_rowwise.launches += 1
-    return vals, pos, aligned
-
-
-binned_dots_rowwise.launches = 0
 
 
 def binned_topk(

@@ -15,9 +15,7 @@ against every window that covers it, the query in three bf16 terms, the
 schedule found on the device from the pairs sorted by first row; int8 and
 bf16 slabs with d % 64 == 0 and d <= 256.  A CPU tensor runs
 `blk_window_dots_plain`, a block gather and an f32 einsum over the block
-rows, chunked over queries.  `blk_window_dots_rowwise`, the previous
-design, one block per window (`csrc/blkslab.cu`), stays for side-by-side
-timing on the card; no probe path calls it.
+rows, chunked over queries.
 """
 
 from __future__ import annotations
@@ -26,15 +24,13 @@ from typing import Tuple
 
 import torch
 
-from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _PLAIN_BYTES, _check_tile_slab, align_starts, probe_tile_rows,
 )
 
 B = 128          # CSR rows per block
-_DTYPE_CODE = {torch.bfloat16: 1, torch.int8: 2}
-_MAX_THREADS = 1024
+_DTYPES = (torch.bfloat16, torch.int8)
 
 
 def blk_window_len(per_table: int) -> int:
@@ -89,7 +85,7 @@ def blk_window_dots_plain(
 
 
 def _check_blk(name, packed_blk, starts, queries):
-    if packed_blk.dtype not in _DTYPE_CODE:
+    if packed_blk.dtype not in _DTYPES:
         raise TypeError(f"{name} takes int8/bf16 slabs, got {packed_blk.dtype}")
     d = packed_blk.shape[2]
     if queries.shape != (starts.shape[0], d):
@@ -138,40 +134,3 @@ def blk_window_dots(
 
 
 blk_window_dots.launches = 0
-
-
-def blk_window_dots_rowwise(
-    packed_blk: torch.Tensor,
-    starts: torch.Tensor,
-    queries: torch.Tensor,
-    per_table: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The previous design, one block per window (`csrc/blkslab.cu`), kept
-    so a run on the card can time it beside `blk_window_dots` on the same
-    inputs.  Same function and arguments (any d); CPU tensors take the
-    plain version."""
-    if not packed_blk.is_cuda:
-        return blk_window_dots_plain(packed_blk, starts, queries, per_table)
-    _check_blk("blk_window_dots_rowwise", packed_blk, starts, queries)
-    win, aligned, blk0 = _geometry_blk(packed_blk, starts, per_table)
-    nblk = win // B
-    threads = nblk * B // (4 // packed_blk.element_size())
-    if threads > _MAX_THREADS:
-        raise ValueError(f"a {win}-lane window needs {threads} threads a block, over "
-                         f"the kernel's {_MAX_THREADS}")
-    q, T = starts.shape
-    qv = queries.float().contiguous()
-    blk0 = blk0.contiguous()
-    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed_blk.device)
-    with torch.cuda.device(packed_blk.device):
-        err = build.library().crt_blk_window_dots(
-            packed_blk.data_ptr(), qv.data_ptr(), blk0.data_ptr(), dots.data_ptr(),
-            q, T, nblk, packed_blk.shape[2], _DTYPE_CODE[packed_blk.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "blk_window_dots_rowwise")
-    blk_window_dots_rowwise.launches += 1
-    return dots, aligned
-
-
-blk_window_dots_rowwise.launches = 0

@@ -35,33 +35,21 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (x, proj, out, n, d, k, L, stream) -> cudaError_t
     "crt_signproj": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "crt_signproj_prev": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (slab, queries, scale, meta, item_tile, item_lo, item_cnt, dots,
     #  n_items, P, T, win, d, n_rows, mask, dtype, rt, m, stream)
     "crt_slab_tile_dots": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (slab, queries, row0, head, size, dots, q, T, win, d, mask, dtype, stream)
-    "crt_slab_window_dots_rowwise": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (slab, queries, row0, vals, pos, q, T, win, d, nbins, dtype, stream)
-    "crt_binned_dots": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (slab, queries, row0, pair, bounds, keys, vals, pos,
     #  P, q, T, win, d, n_rows, nbins, dtype, rt, stream)
     "crt_binned_tile_dots": (_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (slab4, queries, row0, dots, q, T, win, d, stream)
-    "crt_int4_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (slab, queries, row0, pair, bounds, dots, P, T, win, d, n_rows, kind, rt, stream)
     "crt_tile_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (slab, row0, pair, bounds, pair_row0, out, fold,
     #  P, q, T, win, d, n_rows, dtype, rt, stream)
     "crt_tile_load_floor": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (slab, queries, row0, out, sink, q, T, win, d, mode, dtype, stream)
-    "crt_slab_window_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (slab_blk, queries, blk0, dots, q, T, nblk, d, dtype, stream)
-    "crt_blk_window_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (values, out_v, out_i, R, m, k, stream)
     "crt_window_topk": (_P, _P, _P, _I, _I, _I, _P),
-    "crt_window_topk_prev": (_P, _P, _P, _I, _I, _I, _P),
     # (values, out_v, out_i, R, m, k, ldo, stream)
     "crt_window_topk_segments": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (values, out_v, out_i, scratch, R, m, k, P2, stream)

@@ -16,10 +16,8 @@ unpacked once into bf16, dotted on the tensor cores against every window
 that covers it, with the schedule (in packed rows) found on the device
 from the pairs sorted by first row; it takes d % 64 == 0, d <= 256.  A CPU
 tensor runs `slab_window_dots_int4_plain`, a gather, the nibble unpack and
-two f32 einsums chunked over queries.  `slab_window_dots_int4_rowwise` is
-the previous design, one block per window (`csrc/int4slab.cu`), kept for
-side-by-side timing on the card.  Stage 1 of `slab_topk_int4` is the
-exact per-window `window_topk` (S1 on the card, equal dots lowest lane
+two f32 einsums chunked over queries.  Stage 1 of `slab_topk_int4` is
+the exact per-window `window_topk` (S1 on the card, equal dots lowest lane
 first) where the TPU ran `approx_max_k`, as in K1's epilogue.
 """
 
@@ -29,7 +27,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.kernels.probetile import tile_dots, tile_queries
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _check_tile_slab, _dedup_topk_pairs, align_starts, check_row_slab, probe_tile_rows,
@@ -130,34 +127,6 @@ def slab_window_dots_int4(
 
 
 slab_window_dots_int4.launches = 0
-
-
-def slab_window_dots_int4_rowwise(
-    packed4: torch.Tensor,
-    starts: torch.Tensor,
-    queries: torch.Tensor,
-    per_table: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The previous design, one block per window (`csrc/int4slab.cu`), kept
-    so a run on the card can time it beside `slab_window_dots_int4` on the
-    same inputs.  Same function and arguments; CPU tensors take the plain
-    version."""
-    if not packed4.is_cuda:
-        return slab_window_dots_int4_plain(packed4, starts, queries, per_table)
-    win, aligned, row0, qv, dots = _cuda_int4("slab_window_dots_int4_rowwise", packed4,
-                                             starts, queries, per_table)
-    q, T = starts.shape
-    with torch.cuda.device(packed4.device):
-        err = build.library().crt_int4_window_dots(
-            packed4.data_ptr(), qv.data_ptr(), row0.data_ptr(), dots.data_ptr(),
-            q, T, win, packed4.shape[2], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "slab_window_dots_int4_rowwise")
-    slab_window_dots_int4_rowwise.launches += 1
-    return dots, aligned
-
-
-slab_window_dots_int4_rowwise.launches = 0
 
 
 def slab_topk_int4(

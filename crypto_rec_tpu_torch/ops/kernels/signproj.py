@@ -6,8 +6,6 @@
 `signproj_bucket_ids` routes by device: a CUDA tensor launches the Hopper
 kernel in `csrc/signproj.cu` (and raises if it cannot), a CPU tensor runs
 `signproj_bucket_ids_plain`, the plain PyTorch version of the same function.
-`signproj_bucket_ids_prev` is the previous design (`csrc/signproj_prev.cu`),
-kept for side-by-side timing on the card.
 Replaces the TPU kernel `crypto_rec_tpu/ops/pallas/signproj.py`.
 """
 
@@ -20,8 +18,7 @@ from crypto_rec_tpu_torch.ops.kernels import build
 # rows per plain-version chunk: bounds the [chunk, L*k] f32 projection
 # temporary (the JAX build streams the same chunk size through lax.map)
 _CHUNK = 1 << 18
-_MAX_K = 30                       # int32 bucket ids
-_PREV_SMEM_FLOATS = 232448 // 4   # the previous design's shared memory a block
+_MAX_K = 30        # int32 bucket ids
 
 
 def _check(x: torch.Tensor, proj: torch.Tensor, k: int, L: int) -> None:
@@ -64,35 +61,12 @@ def signproj_bucket_ids(
     all of them)."""
     if not x.is_cuda:
         return signproj_bucket_ids_plain(x, proj, k, L)
-    out = _launch("crt_signproj", x, proj, k, L)
+    out = _launch(x, proj, k, L)
     signproj_bucket_ids.launches += 1
     return out
 
 
 signproj_bucket_ids.launches = 0
-
-
-def signproj_bucket_ids_prev(
-    x: torch.Tensor, proj: torch.Tensor, k: int, L: int
-) -> torch.Tensor:
-    """K2's previous design (`csrc/signproj_prev.cu`), kept so a run on the
-    card can time it beside the streamed kernel on the same inputs; no
-    path of the package calls it.  CPU tensors take the plain version; on
-    CUDA tensors it raises where `prev_takes` is false."""
-    if not x.is_cuda:
-        return signproj_bucket_ids_plain(x, proj, k, L)
-    if not prev_takes(x.shape[1], k, L):
-        raise ValueError(f"the previous signproj design keeps all of proj [{x.shape[1]}, "
-                         f"{L * k}] in shared memory: it cannot launch here")
-    return _launch("crt_signproj_prev", x, proj, k, L)
-
-
-def prev_takes(d: int, k: int, L: int) -> bool:
-    """Whether K2's previous design launches at [n, d] x [d, L k]: all of
-    proj (d padded to a multiple of 4) and a tile of two x rows fit in its
-    227 KB of shared memory, and L <= 256 (`csrc/signproj_prev.cu`)."""
-    d4 = -(-d // 4) * 4
-    return 1 <= L <= 256 and d4 * L * k + 2 * (d4 + 1) <= _PREV_SMEM_FLOATS
 
 
 def check_signproj(x: torch.Tensor, proj: torch.Tensor, k: int, L: int) -> None:
@@ -106,7 +80,7 @@ def check_signproj(x: torch.Tensor, proj: torch.Tensor, k: int, L: int) -> None:
         raise ValueError("x and proj must live on the same CUDA device")
 
 
-def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
+def _launch(x, proj, k: int, L: int) -> torch.Tensor:
     check_signproj(x, proj, k, L)
     if x.shape[1] % 4:
         # the kernel reads rows as float4: zero columns in x and zero rows
@@ -121,9 +95,9 @@ def _launch(entry: str, x, proj, k: int, L: int) -> torch.Tensor:
         raise ValueError("the signproj kernel reads x as 16-byte aligned rows")
     out = torch.empty(n, L, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(build.library(), entry)(
+        err = build.library().crt_signproj(
             x.data_ptr(), proj.data_ptr(), out.data_ptr(), n, d, k, L,
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(err, entry)
+    build.check(err, "crt_signproj")
     return out

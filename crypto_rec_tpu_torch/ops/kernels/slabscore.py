@@ -6,8 +6,7 @@ f32 query with every row of the window in the CSR-ordered slab copy
 (int8, bf16 or f32, upcast to f32 before the multiply).  A CUDA tensor
 launches the tile-major Hopper kernel in `csrc/slabtile.cu` (or raises); a
 CPU tensor runs `slab_window_dots_plain`, a gather + f32 einsum chunked
-over queries.  `slab_window_dots_rowwise` is the previous design
-(`csrc/slabscore.cu`), kept for side-by-side timing on the card.
+over queries.
 
 The window geometry is the JAX kernel's, computed here in plain torch so
 outputs match lane for lane: each start is aligned DOWN to `ALIGN` rows
@@ -57,7 +56,7 @@ WIN_ROUND = 128    # window length rounds up to a multiple of this
 # plain version: bound the gathered [chunk, T, win, d] f32 block to ~1 GB
 _PLAIN_BYTES = 1 << 30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_ROW_BYTES = 2048      # the kernel keeps <= 4 16-byte chunks per lane
+_MAX_ROW_BYTES = 2048      # the probe wrappers' row limit (`check_row_slab`)
 
 
 def window_len(per_table: int) -> int:
@@ -368,17 +367,6 @@ def card_geometry(packed, starts, sizes, queries, per_table, mask, shared_slab,
     return win, aligned, row0.contiguous(), head.contiguous(), size
 
 
-def _cuda_args(packed, starts, sizes, queries, per_table, mask, shared_slab):
-    """The row-wise body's checks (`check_row_slab`: d % 16 == 0, rows of
-    at most 2,048 B) and geometry; size is None with the mask off."""
-    _check_sizes(sizes, mask)
-    check_row_slab("the slab kernel", packed, starts, queries, _DTYPE_CODE)
-    win, aligned, row0, head, size = _geometry(
-        packed, starts, sizes if mask else None, per_table, shared_slab
-    )
-    return win, aligned, row0.contiguous(), head.contiguous(), size
-
-
 def slab_window_dots(
     packed: torch.Tensor,
     starts: torch.Tensor,
@@ -446,46 +434,6 @@ def _count_lanes(packed, starts, sizes, per_table: int) -> None:
 
 
 slab_window_dots.launches = 0
-
-
-def slab_window_dots_rowwise(
-    packed: torch.Tensor,
-    starts: torch.Tensor,
-    sizes,
-    queries: torch.Tensor,
-    per_table: int,
-    mask: bool = True,
-    shared_slab: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's previous design, one block per window (`csrc/slabscore.cu`),
-    kept so a run on the card can time it beside the tile-major kernel on
-    the same inputs.  Same function and arguments as `slab_window_dots`
-    but for packed_scale, which it does not take; no serving or probe path
-    calls it.  CPU tensors take the plain version."""
-    if not packed.is_cuda:
-        return slab_window_dots_plain(
-            packed, starts, sizes, queries, per_table, mask, shared_slab
-        )
-    win, aligned, row0, head, size = _cuda_args(
-        packed, starts, sizes, queries, per_table, mask, shared_slab)
-    q, T = starts.shape
-    d = packed.shape[2]
-    qv = queries.float().contiguous()
-    if size is None:            # mask off: the kernel reads but ignores it
-        size = torch.zeros_like(head)
-    dots = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = build.library().crt_slab_window_dots_rowwise(
-            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), head.data_ptr(),
-            size.data_ptr(), dots.data_ptr(), q, T, win, d, int(mask),
-            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "slab_window_dots_rowwise")
-    slab_window_dots_rowwise.launches += 1
-    return dots, aligned
-
-
-slab_window_dots_rowwise.launches = 0
 
 
 def _dedup_topk_pairs(

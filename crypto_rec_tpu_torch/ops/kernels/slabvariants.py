@@ -31,13 +31,9 @@ pairs sorted by first row):
 - load_floor: `load_floor`, no product: each covered row loaded once and
   folded, each window lane written once.  Its time is the floor of the
   tile-major family's loads and output writes (int8, bf16 and f32 slabs,
-  d % 16 == 0, rows of <= 2048 B, as the row-wise body).
+  d % 16 == 0, rows of <= 2048 B).
 
-A CPU tensor runs `slab_window_variant_plain`.  The previous design, the
-row-wise `variant_kernel` in `csrc/slabvariants.cu` (one block per
-window, every window read from memory), stays as
-`slab_window_variant_rowwise` for side-by-side timing on the card; no
-probe path calls it.
+A CPU tensor runs `slab_window_variant_plain`.
 """
 
 from __future__ import annotations
@@ -53,7 +49,7 @@ from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     slab_window_dots_plain, window_chunks,
 )
 
-MODES = {"load_floor": 0, "rounded_query": 1, "i8_dot": 2}
+MODES = ("load_floor", "rounded_query", "i8_dot")
 # the probes' mode names; their "vpu" is K1 with mask=False
 PROBE_MODES = {"zeros": "load_floor", "mxu_rep": "rounded_query",
                "mxu_tile": "rounded_query", "mxu_i8": "i8_dot"}
@@ -113,29 +109,6 @@ def slab_window_variant_plain(
     for s, e, cand in window_chunks(packed, row0, win, elem_bytes=packed.element_size()):
         fold[s:e] = _xor_fold(cand.contiguous().view(torch.int32).reshape(e - s, -1))
     return out, aligned, fold
-
-
-def _variant_launch(name, packed, starts, queries, per_table, mode):
-    """The row-wise `variant_kernel` (`csrc/slabvariants.cu`) on CUDA
-    tensors -> the outputs of `slab_window_variant`."""
-    _check_mode(packed, queries, mode)
-    check_row_slab(name, packed, starts, queries, _DTYPE_CODE)
-    win, aligned, row0, _, _ = _geometry(packed, starts, None, per_table, False)
-    q, T = starts.shape
-    qv = (queries if mode == "i8_dot" else queries.float()).contiguous()
-    if qv.data_ptr() % 16:
-        raise ValueError(f"{name} needs 16-byte aligned queries")
-    row0 = row0.contiguous()
-    out = torch.empty(q, T, win, dtype=torch.float32, device=packed.device)
-    fold = torch.zeros(q, dtype=torch.int32, device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = build.library().crt_slab_window_variant(
-            packed.data_ptr(), qv.data_ptr(), row0.data_ptr(), out.data_ptr(),
-            fold.data_ptr(), q, T, win, packed.shape[2], MODES[mode],
-            _DTYPE_CODE[packed.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, name)
-    return (out, aligned, fold) if mode == "load_floor" else (out, aligned)
 
 
 def _cuda_rounded(packed, starts, queries, per_table):
@@ -281,26 +254,3 @@ def slab_window_variant(
     kernel = {"rounded_query": rounded_query_dots, "i8_dot": i8_dots,
               "load_floor": load_floor}[mode]
     return kernel(packed, starts, queries, per_table)
-
-
-def slab_window_variant_rowwise(
-    packed: torch.Tensor,
-    starts: torch.Tensor,
-    queries: torch.Tensor,
-    per_table: int,
-    mode: str = "rounded_query",
-):
-    """Every mode on the previous design, the row-wise body (one block per
-    window, `csrc/slabvariants.cu`), kept so a run on the card can time it
-    beside the tile-major kernels on the same inputs.  Arguments and
-    outputs as `slab_window_variant` (any d % 16 == 0 with rows of <= 2048
-    B); CPU tensors take the plain version."""
-    if not packed.is_cuda:
-        return slab_window_variant_plain(packed, starts, queries, per_table, mode)
-    out = _variant_launch("slab_window_variant_rowwise", packed, starts, queries,
-                          per_table, mode)
-    slab_window_variant_rowwise.launches += 1
-    return out
-
-
-slab_window_variant_rowwise.launches = 0

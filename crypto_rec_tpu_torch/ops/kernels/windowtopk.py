@@ -21,9 +21,7 @@ k-th largest image) from a lower bound read off the lanes' maxima and one
 counting pass, takes every image above it and the equal ones lowest index
 first, and sorts only those.  Rows of m <= 1,024 with k <= 32 (the
 per-window forms) take one warp a row, other rows one block; see the
-source.  `window_topk_prev` launches the previous design
-(`csrc/windowtopk_prev.cu`: k serial arg-max rounds a row), kept only so a
-run on the card can time it beside the kernel; no path calls it.
+source.
 """
 
 from __future__ import annotations
@@ -62,19 +60,6 @@ def window_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     if not values.is_cuda:
         return topk_desc(values, k)
     return _select(values, k)
-
-
-def window_topk_prev(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """S1's previous design on a CUDA tensor (the same contract as
-    `window_topk` at m <= MAX_M, k <= MAX_K), for timing beside it; raises
-    on a CPU tensor."""
-    if not values.is_cuda:
-        raise ValueError("window_topk_prev runs only on the card")
-    check_window_topk(values, k)
-    if values.shape[1] > MAX_M or k > MAX_K:
-        raise ValueError(f"window_topk_prev takes m <= {MAX_M}, k <= {MAX_K}; "
-                         f"got k={k}, m={values.shape[1]}")
-    return _launch("crt_window_topk_prev", values, k)
 
 
 def check_window_topk(values: torch.Tensor, k: int) -> None:

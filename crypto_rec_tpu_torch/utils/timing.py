@@ -179,7 +179,7 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str, trace_dir: Optional[str] = None):
         """Time the block; under torch.profiler it is also a span named
-        `name` (`span`), which tools/chip_probes/program_profile.py reads.
+        `name` (`span`), which `main --profile` writes to spans.json.
         trace_dir: profile the block (CPU, and CUDA activity on a CUDA
         device) and write its Chrome trace into that directory as
         `<name>.trace.json`."""

@@ -16,7 +16,6 @@ from crypto_rec_tpu_torch.ops.kernels.signproj import (
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     slab_window_dots,
     slab_window_dots_plain,
-    slab_window_dots_rowwise,
 )
 
 
@@ -140,20 +139,18 @@ def test_slab_kernel_shared_three_segment_slab(cuda, dtype):
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * float(scale))
 
 
-# ---- the tile-major K1 against the plain version and the row-wise body ----
+# ---- the tile-major K1 against the plain version ----
 
-def _three_way(args, mask, shared, atol):
-    """New K1, row-wise K1 and plain on the same windows: aligned starts
-    and masked lanes equal, dots within rtol 1e-5 / atol."""
+def _two_way(args, mask, shared, atol):
+    """The tile-major K1 and the plain version on the same windows: aligned
+    starts and masked lanes equal, dots within rtol 1e-5 / atol."""
     got, a_got = slab_window_dots(*args, mask=mask, shared_slab=shared)
-    row, a_row = slab_window_dots_rowwise(*args, mask=mask, shared_slab=shared)
     want, a_want = slab_window_dots_plain(*args, mask=mask, shared_slab=shared)
     torch.cuda.synchronize()
-    assert torch.equal(a_got, a_want) and torch.equal(a_row, a_want)
+    assert torch.equal(a_got, a_want)
     fin = torch.isfinite(want)
-    for out in (got, row):
-        assert torch.equal(torch.isfinite(out), fin)
-        assert torch.allclose(out[fin], want[fin], rtol=1e-5, atol=atol)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
@@ -168,7 +165,7 @@ def test_tile_kernel_hot_tile(cuda, dtype, mask):
     starts[:500] = 3000
     sizes = torch.randint(0, 600, (q, group), generator=g, device=cuda, dtype=torch.int32)
     qv = torch.nn.functional.normalize(torch.randn(q, 128, generator=g, device=cuda), dim=-1)
-    _three_way((packed, starts, sizes, qv, 488), mask, True, 1e-4)
+    _two_way((packed, starts, sizes, qv, 488), mask, True, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
@@ -183,7 +180,7 @@ def test_tile_kernel_augmented_width(cuda, dtype):
     sizes = torch.randint(0, 900, (q, T), generator=g, device=cuda, dtype=torch.int32)
     qv = torch.randn(q, d, generator=g, device=cuda)
     want, _ = slab_window_dots_plain(packed, starts, sizes, qv, 768, mask=False)
-    _three_way((packed, starts, sizes, qv, 768), True, False,
+    _two_way((packed, starts, sizes, qv, 768), True, False,
                1e-6 * float(want.abs().max()))
 
 
@@ -200,7 +197,7 @@ def test_tile_kernel_shared_multicube_slab(cuda, dtype):
     qv = torch.randn(rows, d, generator=g, device=cuda)
     want, _ = slab_window_dots_plain(packed, starts, sizes, qv, 976, mask=False,
                                      shared_slab=True)
-    _three_way((packed, starts, sizes, qv, 976), False, True,
+    _two_way((packed, starts, sizes, qv, 976), False, True,
                1e-6 * float(want.abs().max()))
 
 
@@ -424,14 +421,12 @@ def _binned_against_plain(fn, packed, starts, qv, nbins):
 
 
 @pytest.mark.parametrize("case", list(SHARING))
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("dtype,nbins", [(torch.int8, 128), (torch.bfloat16, 256)])
-def test_binned_designs_match_plain(cuda, dtype, nbins, design, case):
+def test_binned_designs_match_plain(cuda, dtype, nbins, case):
     from crypto_rec_tpu_torch.ops.kernels import binned
 
-    fn = binned.binned_dots if design == "tiles" else binned.binned_dots_rowwise
     g = torch.Generator(device=cuda).manual_seed(21)
-    _binned_against_plain(fn, *_sharing_inputs(g, case, dtype, cuda), nbins)
+    _binned_against_plain(binned.binned_dots, *_sharing_inputs(g, case, dtype, cuda), nbins)
 
 
 @pytest.mark.parametrize("nbins", [128, 256])
@@ -455,37 +450,31 @@ def test_binned_designs_ties_go_to_the_lowest_row(cuda, nbins):
 
 @pytest.mark.parametrize("case", list(SHARING))
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
-def test_int4_designs_match_plain(cuda, design, d, case):
-    """The tile-major P6 (and the previous body) against the plain version
-    on every lane; windows starting on a 64-row boundary read the same
-    aligned start."""
+def test_int4_designs_match_plain(cuda, d, case):
+    """The tile-major P6 against the plain version on every lane; windows
+    starting on a 64-row boundary read the same aligned start."""
     from crypto_rec_tpu_torch.ops.kernels import int4slab
 
-    fn = (int4slab.slab_window_dots_int4 if design == "tiles"
-          else int4slab.slab_window_dots_int4_rowwise)
     g = torch.Generator(device=cuda).manual_seed(22)
     packed, starts, qv = _sharing_inputs(g, case, torch.int8, cuda, d=d)
     p4 = int4slab.repack_int4(packed)
-    dk, ak = fn(p4, starts, qv, 488)
+    dk, ak = int4slab.slab_window_dots_int4(p4, starts, qv, 488)
     dp, ap = int4slab.slab_window_dots_int4_plain(p4, starts, qv, 488)
     torch.cuda.synchronize()
     assert torch.equal(ak, ap)
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("case", list(SHARING))
-def test_rounded_query_designs_match_plain(cuda, case, d, design):
-    """P2 rounded_query, tile-major (and the previous row-wise body),
-    against the plain version on every lane within the dot tolerance."""
+def test_rounded_query_designs_match_plain(cuda, case, d):
+    """P2 rounded_query, tile-major, against the plain version on every
+    lane within the dot tolerance."""
     from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
 
-    fn = sv.rounded_query_dots if design == "tiles" else sv.slab_window_variant_rowwise
     g = torch.Generator(device=cuda).manual_seed(23)
     packed, starts, qv = _sharing_inputs(g, case, torch.bfloat16, cuda, d=d)
-    dk, ak = fn(packed, starts, qv, 488)
+    dk, ak = sv.rounded_query_dots(packed, starts, qv, 488)
     dp, ap = sv.slab_window_variant_plain(packed, starts, qv, 488, "rounded_query")
     torch.cuda.synchronize()
     assert torch.equal(ak, ap)
@@ -512,21 +501,11 @@ def test_rounded_query_kernel_exact_on_integers(cuda, n_pad):
     assert torch.equal(ak, ap) and torch.equal(dk, dp)
 
 
-def _variant_designs(mode):
-    """{design: fn(packed, starts, queries, per_table)} of a variant mode:
-    the tile-major kernel and the row-wise body."""
-    from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
-
-    return {"tiles": lambda *a: sv.slab_window_variant(*a, mode),
-            "rowwise": lambda *a: sv.slab_window_variant_rowwise(*a, mode)}
-
-
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("case", list(SHARING))
-def test_i8_designs_equal_plain(cuda, case, d, design):
-    """P4 i8_dot, tile-major on the int8 tensor cores (and the row-wise
-    body), bit for bit the plain version on every lane: int8 slabs over
+def test_i8_designs_equal_plain(cuda, case, d):
+    """P4 i8_dot, tile-major on the int8 tensor cores, bit for bit the
+    plain version on every lane: int8 slabs over
     [-127, 127], per-row int8 queries; d = 64 and 192 take the int8
     swizzle's half-line branch."""
     from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
@@ -535,10 +514,10 @@ def test_i8_designs_equal_plain(cuda, case, d, design):
     packed, starts, qv = _sharing_inputs(g, case, torch.int8, cuda, d=d)
     qi = sv.quantize_queries(qv)
     before = sv.i8_dots.launches
-    dk, ak = _variant_designs("i8_dot")[design](packed, starts, qi, 488)
+    dk, ak = sv.slab_window_variant(packed, starts, qi, 488, "i8_dot")
     dp, ap = sv.slab_window_variant_plain(packed, starts, qi, 488, "i8_dot")
     torch.cuda.synchronize()
-    assert sv.i8_dots.launches == before + (design == "tiles")
+    assert sv.i8_dots.launches == before + 1
     assert torch.equal(ak, ap) and torch.equal(dk, dp)
 
 
@@ -563,39 +542,36 @@ def test_i8_kernel_exact_at_the_extremes(cuda, n_pad):
     assert float(dp.max()) > 64 * 127 * 127
 
 
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(SHARING))
-def test_load_floor_designs_equal_plain(cuda, case, d, dtype, design):
-    """P2 load_floor, tile-major (and the row-wise body): output and XOR
-    fold equal to the plain version's, which reads every window byte."""
+def test_load_floor_designs_equal_plain(cuda, case, d, dtype):
+    """P2 load_floor, tile-major: output and XOR fold equal to the plain
+    version's, which reads every window byte."""
     from crypto_rec_tpu_torch.ops.kernels import slabvariants as sv
 
     g = torch.Generator(device=cuda).manual_seed(28)
     packed, starts, qv = _sharing_inputs(g, case, dtype, cuda, d=d)
     before = sv.load_floor.launches
-    got = _variant_designs("load_floor")[design](packed, starts, qv, 488)
+    got = sv.slab_window_variant(packed, starts, qv, 488, "load_floor")
     want = sv.slab_window_variant_plain(packed, starts, qv, 488, "load_floor")
     torch.cuda.synchronize()
-    assert sv.load_floor.launches == before + (design == "tiles")
+    assert sv.load_floor.launches == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("design", ["tiles", "rowwise"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(SHARING))
-def test_blk_designs_match_plain(cuda, case, d, dtype, design):
-    """P5 tile-major (and the previous row-wise body) against the plain
-    version on every lane; "last tile cut" meets the slab's last block."""
+def test_blk_designs_match_plain(cuda, case, d, dtype):
+    """P5 tile-major against the plain version on every lane; "last tile
+    cut" meets the slab's last block."""
     from crypto_rec_tpu_torch.ops.kernels import blkslab
 
-    fn = blkslab.blk_window_dots if design == "tiles" else blkslab.blk_window_dots_rowwise
     g = torch.Generator(device=cuda).manual_seed(25)
     packed, starts, qv = _sharing_inputs(g, case, dtype, cuda, d=d, blocks=True)
     blk = blkslab.to_blk(packed)
-    dk, ak = fn(blk, starts, qv, 488)
+    dk, ak = blkslab.blk_window_dots(blk, starts, qv, 488)
     dp, ap = blkslab.blk_window_dots_plain(blk, starts, qv, 488)
     torch.cuda.synchronize()
     assert torch.equal(ak, ap)
@@ -1061,26 +1037,6 @@ def test_window_topk_kernel_equals_plain(cuda, m, k):
         assert torch.equal(got[0].cpu().view(torch.int32), want[0].cpu().view(torch.int32))
 
 
-@pytest.mark.parametrize("m,k", S1_SHAPES[:20])
-def test_window_topk_prev_equals_plain(cuda, m, k):
-    """S1's previous design, kept for timing, still returns topk_desc's
-    answer bit for bit on tied rows."""
-    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk, window_topk_prev
-    from crypto_rec_tpu_torch.ops.topk import topk_desc
-
-    R = max(1, min(3000, (1 << 22) // m))
-    v = _tied_rows(R, m, torch.Generator().manual_seed(m * 5 + k), cuda)
-    before = window_topk.launches
-    got = window_topk_prev(v, k)
-    torch.cuda.synchronize()
-    assert window_topk.launches == before
-    want = topk_desc(v, k)
-    assert torch.equal(got[1], want[1])
-    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-    with pytest.raises(ValueError):
-        window_topk_prev(v.cpu(), k)
-
-
 @pytest.mark.parametrize("fill", [float("nan"), float("-inf"), -0.0, 2.5])
 @pytest.mark.parametrize("m,k", [(640, 12), (1024, 32), (640, 80), (16384, 40),
                                  (32768, 1024)])
@@ -1313,28 +1269,6 @@ def test_slab_kernel_raises_only_where_jax_or_the_cpu_path_raises(cuda):
     with pytest.raises(ValueError, match="sizes"):
         slab_window_dots(packed, starts, None, q, 100, mask=True)
     assert slab_window_dots.launches == before
-
-
-def test_signproj_prev_raises_where_it_cannot_launch(cuda):
-    """K2's previous design keeps all of proj in shared memory: past that
-    (`prev_takes` false) its wrapper raises before any launch, and inside
-    it the design still launches."""
-    from crypto_rec_tpu_torch.ops.kernels.signproj import prev_takes, signproj_bucket_ids_prev
-
-    g = torch.Generator(device=cuda).manual_seed(1536)
-    x = torch.randn(64, 1536, generator=g, device=cuda)
-    proj = torch.randn(1536, 8 * 13, generator=g, device=cuda)
-    assert not prev_takes(1536, 13, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        signproj_bucket_ids_prev(x, proj, 13, 8)
-    assert prev_takes(128, 13, 8)
-    xs, ps = x[:, :128].contiguous(), proj[:128].contiguous()
-    got = signproj_bucket_ids_prev(xs, ps, 13, 8)
-    want = signproj_bucket_ids_plain(xs, ps, 13, 8)
-    torch.cuda.synchronize()
-    acc = (xs @ ps).abs() <= 1e-5 * xs.norm(dim=1, keepdim=True) * ps.norm(dim=0)
-    near = acc.view(64, 8, 13).any(-1)
-    assert not ((got != want) & ~near).any()
 
 
 @pytest.mark.parametrize("n,d,k,L", [(20_000, 1536, 13, 8), (20_000, 768, 13, 16),

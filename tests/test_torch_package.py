@@ -1,12 +1,16 @@
 """Package-level checks of the PyTorch port that need no JAX reference."""
 
+import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from crypto_rec_tpu_torch.io.synth import planted_clustered_corpus
+from crypto_rec_tpu_torch.ops.kernels import build
 from crypto_rec_tpu_torch.ops.oracle import exact_nearest, recall_at_k
 
 REPO = Path(__file__).resolve().parents[1]
@@ -227,3 +231,31 @@ def test_the_surface_walk_sees_a_gap():
     port_s = {"a.py:f": ["x"], "a.py:C": ["u"], "a.py:C.m": ["self"]}
     assert sorted(surface_gaps(jax_s, port_s)) == [
         "a.py:C(v)", "a.py:C.m(z)", "a.py:f(y)", "b.py:g"]
+
+
+def _entry_points() -> dict:
+    """{name: [parameter declarations]} of every `extern "C" int crt_*(...)`
+    defined in csrc/*.cu."""
+    found = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (crt_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            assert name not in found, f"{name} defined twice"
+            found[name] = [p.strip() for p in params.split(",")]
+    return found
+
+
+@pytest.mark.parametrize("entry", sorted(build._SIGNATURES))
+def test_kernel_entry_points_match_signatures(entry):
+    """`library()` gives every `build._SIGNATURES` entry its argtypes when
+    it loads, so a stale entry would break the card while every CPU test
+    passes: each C entry point in csrc/ has exactly one signature and each
+    signature one entry point, with as many parameters, each a pointer
+    (c_void_p) where the C declaration has one and an int where it has an
+    int."""
+    found = _entry_points()
+    assert set(found) == set(build._SIGNATURES)
+    params, argtypes = found[entry], build._SIGNATURES[entry]
+    assert len(params) == len(argtypes), (params, argtypes)
+    for decl, t in zip(params, argtypes):
+        assert t is (ctypes.c_void_p if "*" in decl else ctypes.c_int), (decl, t)

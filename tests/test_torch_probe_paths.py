@@ -151,7 +151,7 @@ def test_run_functions_on_cpu(index):
                 assert 0.0 <= v <= 1.0, key
     assert results[0]["nomask_ge_masked"]
     assert results[5]["max_abs_diff"] < 1e-5
-    assert split["floor"]["ratio_rounds"] is None
+    assert split["floor"]["tile_ratio_rounds"] is None
 
 
 @pytest.mark.parametrize("name", PROBES)

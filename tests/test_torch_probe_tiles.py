@@ -712,8 +712,8 @@ def test_tile_wrappers_check_their_domain(case):
     versions take every case (P2's rounded_query every bf16 case, P4 every
     int8 one), the tensor-core kernels only int8 / bf16 (P3, P5), bf16 (P2),
     int8 (P4, with int8 queries) or uint8 (P6) slabs with d % 64 == 0,
-    d <= 256; load_floor, as the row-wise body, int8, bf16 and f32 rows
-    with d % 16 == 0 of at most 2048 bytes."""
+    d <= 256; load_floor int8, bf16 and f32 rows with d % 16 == 0 of at
+    most 2048 bytes."""
     kernel, dtype, d, error = DOMAIN[case]
     g = torch.Generator().manual_seed(5)
     q, T, n_pad = 6, 2, 1024

@@ -405,9 +405,9 @@ def test_k1_card_checks_accept_what_jax_accepts(dtype):
 
 @pytest.mark.parametrize("dtype", list(DT))
 def test_row_slab_takes_states_check_row_slab(dtype):
-    """The row-wise bodies' limit (`row_slab_takes`, which chip_smoke reads
-    before it times the row-wise K1 beside the tile-major one) is exactly
-    where `check_row_slab` raises: d % 16 == 0, at most 2,048 B a row."""
+    """The row-slab limit (`row_slab_takes`) is exactly where
+    `check_row_slab`, the check the tile-major probe kernels' wrappers make
+    before their launch, raises: d % 16 == 0, at most 2,048 B a row."""
     for d in (15, 16, 100, 128, 256, 384, 512, 1024, 1536, 2048, 2560):
         packed = torch.zeros(1, 4, d, dtype=DT[dtype])
         try:
@@ -423,13 +423,14 @@ def test_row_slab_takes_states_check_row_slab(dtype):
 @pytest.mark.parametrize("d,k,L", [(128, 13, 8), (128, 13, 1), (16, 4, 5), (15, 4, 5),
                                    (256, 13, 8), (384, 13, 8), (768, 13, 8), (1536, 13, 8),
                                    (128, 30, 16), (64, 7, 256), (64, 1, 257), (1024, 1, 56)])
-def test_k2_previous_design_limits(d, k, L):
-    """`prev_takes` is csrc/signproj_prev.cu's launch condition: proj
-    [d4, L k] and a tile of two x rows of d4 + 1 floats (d4: d padded to a
-    multiple of 4) within its 232,448 B of shared memory, 1 <= L <= 256."""
-    d4 = -(-d // 4) * 4
-    fits = 4 * (d4 * L * k + 2 * (d4 + 1)) <= 232448 and L <= 256
-    assert signproj.prev_takes(d, k, L) == fits
+def test_card_k2_takes_every_shape(d, k, L):
+    """The card's K2 takes any d and any L (it streams proj beside x and
+    splits the tables into groups): `check_signproj` accepts float32
+    x [2, d] and proj [d, L k] at every shape, and raises at k = 31, past
+    the 30 bits of an int32 bucket id."""
+    signproj.check_signproj(torch.zeros(2, d), torch.zeros(d, L * k), k, L)
+    with pytest.raises(ValueError, match="30 bits"):
+        signproj.check_signproj(torch.zeros(2, d), torch.zeros(d, L * 31), 31, L)
 
 
 def test_k1_card_checks_raise_where_jax_or_the_cpu_path_raises():

@@ -4,10 +4,9 @@
 On chip_smoke's CF leg (2M x 128 planted corpus, cosine k = 13, L = 8,
 int8 slabs, window 488) at q = 8,192 and 32,768, and on the euclidean
 MultiCube geometry of chip_smoke phase 8 (q = 1,024): the work list
-(`tile_plan`) and the kernel alone, in alternating
-rounds with the whole wrapper and the row-wise body (CUDA events), the
-item statistics, and a torch.profiler table of one wrapper call.  Then K2
-at L = 8 and L = 1: kernel, previous design, torch.matmul.
+(`tile_plan`) and the kernel alone, in alternating rounds with the whole
+wrapper (CUDA events), the item statistics, and a torch.profiler table of
+one wrapper call.  Then K2 at L = 8 and L = 1: kernel, torch.matmul.
 
     python3 tools/chip_probes/k1_tile_profile.py
 
@@ -33,9 +32,7 @@ from crypto_rec_tpu_torch.models.lsh.index import (  # noqa: E402
     build_index, pack_index, query_hashes,
 )
 from crypto_rec_tpu_torch.ops.kernels import slabscore as S  # noqa: E402
-from crypto_rec_tpu_torch.ops.kernels.signproj import (  # noqa: E402
-    signproj_bucket_ids, signproj_bucket_ids_prev,
-)
+from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids  # noqa: E402
 from crypto_rec_tpu_torch.ops.kernels.slabscore import augment_queries  # noqa: E402
 
 N, D, K, L, PT = 2_000_000, 128, 13, 8, 488
@@ -46,8 +43,9 @@ def med(t, k):
 
 
 def k1_pieces(label, packed, s0, sizes, qv, per_table, shared):
-    """Wrapper, row-wise body, work list and kernel alone."""
-    win, _, row0, head, size = S._cuda_args(packed, s0, sizes, qv, per_table, False, shared)
+    """Wrapper, work list and kernel alone."""
+    win, _, row0, head, size = S.card_geometry(packed, s0, sizes, qv, per_table, False,
+                                               shared)
     q, T = s0.shape
     plan = S.tile_plan(packed, row0, head, size, win)
     qf = qv.float().contiguous()
@@ -60,7 +58,6 @@ def k1_pieces(label, packed, s0, sizes, qv, per_table, shared):
     a = (packed, s0, sizes, qv, per_table)
     t = timed_alternating({
         "wrapper": lambda: S.slab_window_dots(*a, mask=False, shared_slab=shared),
-        "rowwise": lambda: S.slab_window_dots_rowwise(*a, mask=False, shared_slab=shared),
         "plan": lambda: S.tile_plan(packed, row0, head, size, win),
         "kernel": kernel,
     }, packed.device, 7)
@@ -70,8 +67,8 @@ def k1_pieces(label, packed, s0, sizes, qv, per_table, shared):
     print(f"{label}: pairs {q * T}, items {cnt.numel()} listed / {real} real, "
           f"mean pairs {float(cnt[cnt > 0].float().mean()):.1f}, full "
           f"{int((cnt == m).sum())}; ms (median of 7 alternating rounds): wrapper "
-          f"{med(t, 'wrapper')}, row-wise {med(t, 'rowwise')}, work list and fields "
-          f"{med(t, 'plan')}, kernel {med(t, 'kernel')}",
+          f"{med(t, 'wrapper')}, work list and fields {med(t, 'plan')}, kernel "
+          f"{med(t, 'kernel')}",
           flush=True)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -95,11 +92,10 @@ def main() -> int:
     for LL, p in ((L, proj), (1, proj[:, :K].contiguous())):
         t = timed_alternating({
             "kernel": lambda: signproj_bucket_ids(corpus, p, K, LL),
-            "prev": lambda: signproj_bucket_ids_prev(corpus, p, K, LL),
             "matmul": lambda: torch.matmul(corpus, p),
         }, dev, 7)
-        print(f"K2 L = {LL}: kernel {med(t, 'kernel')} ms, previous {med(t, 'prev')}, "
-              f"torch.matmul {med(t, 'matmul')}", flush=True)
+        print(f"K2 L = {LL}: kernel {med(t, 'kernel')} ms, torch.matmul {med(t, 'matmul')}",
+              flush=True)
     index = pack_index(build_index(None, corpus, "cosine", K, L, family=CosineLsh(proj, K, L)),
                        corpus, dtype=torch.int8)
     for q in (8192, 32768):

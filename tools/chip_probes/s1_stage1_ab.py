@@ -1,16 +1,13 @@
 #!/usr/bin/env python3
-"""Stage 1 through S1 against stage 1 through S1's previous design and
-through `torch.topk`, end to end.
+"""Stage 1 through S1 against stage 1 through `torch.topk`, end to end.
 
 Every K1 path selects its dots through `window_topk` (S1 on the card,
 `csrc/windowtopk.cu`: a threshold from the lanes' maxima, one counting
-pass, the winners sorted).  Its previous design (`window_topk_prev`,
-`csrc/windowtopk_prev.cu`: k serial arg-max rounds a row) returns the same
-answer; before S1 those sites called `torch.topk`, which keeps no order
-among equal dots.  This puts the three selections in the same call, on
-the same index and queries, and times whole paths with each, in rounds
-whose order rotates every round, host clock around work that ends in
-`torch.cuda.synchronize()`:
+pass, the winners sorted); before S1 those sites called `torch.topk`,
+which keeps no order among equal dots.  This puts the two selections in
+the same call, on the same index and queries, and times whole paths with
+each, in rounds whose order alternates every round, host clock around
+work that ends in `torch.cuda.synchronize()`:
 
   cf          chip_smoke phase 5's CF leg: retrieval (K2 query hash, K1,
               stage 1 kk = 12 a window, dedup) then CF scoring, on the 2M x
@@ -26,9 +23,8 @@ whose order rotates every round, host clock around work that ends in
 
 The selection is swapped in for the module attribute `window_topk` of
 ops/kernels/slabscore.py and models/lsh/hypercube.py, so nothing else
-moves.  Recall@10 against the planted truth is printed for each: S1 and its
-previous design return the same ids, `torch.topk` differs only among tied
-dots.
+moves.  Recall@10 against the planted truth is printed for each:
+`torch.topk` differs from S1 only among tied dots.
 
     python3 tools/chip_probes/s1_stage1_ab.py [--rounds 11]
 
@@ -63,9 +59,7 @@ from crypto_rec_tpu_torch.models.rec.engine import (  # noqa: E402
     RatingSet, recommend_topk_retrieved,
 )
 from crypto_rec_tpu_torch.ops.kernels import slabscore  # noqa: E402
-from crypto_rec_tpu_torch.ops.kernels.windowtopk import (  # noqa: E402
-    window_topk, window_topk_prev,
-)
+from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk  # noqa: E402
 from crypto_rec_tpu_torch.ops.oracle import recall_at_k  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -76,7 +70,7 @@ def torch_topk(values, k):
     return torch.topk(values, k, dim=1)
 
 
-ARMS = {"s1": window_topk, "s1_prev": window_topk_prev, "torch_topk": torch_topk}
+ARMS = {"s1": window_topk, "torch_topk": torch_topk}
 
 
 @contextlib.contextmanager
@@ -93,7 +87,7 @@ def stage1(select):
 
 def ab(fn, rounds):
     """-> {arm: [host ms of each round]}: one warm run of each, then
-    `rounds` rounds running every arm once, the order rotating."""
+    `rounds` rounds running every arm once, the order alternating."""
     for select in ARMS.values():
         with stage1(select):
             fn()
@@ -112,14 +106,11 @@ def ab(fn, rounds):
 
 def report(label, q, times, recalls):
     med = {name: statistics.median(t) for name, t in times.items()}
-    wins = {other: sum(a < b for a, b in zip(times["s1"], times[other]))
-            for other in ("s1_prev", "torch_topk")}
+    wins = {"torch_topk": sum(a < b for a, b in zip(times["s1"], times["torch_topk"]))}
     print(f"{label}, q = {q}: host ms S1 {med['s1']:.3f} ({q / med['s1'] * 1e3:,.0f}/s), "
-          f"previous design {med['s1_prev']:.3f} ({q / med['s1_prev'] * 1e3:,.0f}/s), "
           f"torch.topk {med['torch_topk']:.3f} ({q / med['torch_topk'] * 1e3:,.0f}/s); "
-          f"S1 faster than the previous design in {wins['s1_prev']} of {len(times['s1'])} "
-          f"rounds, than torch.topk in {wins['torch_topk']}; recall@{TOP_K} S1 "
-          f"{recalls['s1']:.4f}, previous {recalls['s1_prev']:.4f}, torch.topk "
+          f"S1 faster than torch.topk in {wins['torch_topk']} of {len(times['s1'])} "
+          f"rounds; recall@{TOP_K} S1 {recalls['s1']:.4f}, torch.topk "
           f"{recalls['torch_topk']:.4f}", flush=True)
     for name, t in times.items():
         print(f"  {name} rounds (ms): {', '.join(f'{x:.3f}' for x in t)}", flush=True)
