@@ -441,11 +441,12 @@ def _counters():
     from crypto_rec_tpu_torch.ops.kernels.slabvariants import (
         i8_dots, load_floor, rounded_query_dots,
     )
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import dedup_topk
     from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
 
     return (signproj_bucket_ids, slab_window_dots, window_topk, binned_dots,
             slab_window_dots_int4, load_floor, rounded_query_dots, i8_dots, blk_window_dots,
-            cf_predict)
+            cf_predict, dedup_topk)
 
 
 def zero_counts():
@@ -2445,7 +2446,7 @@ WIDE = dict(n=1_000_000, q=8192, oracle_q=1024, floor=0.90,
             s1_cpu_rows=64)
 KERNEL_NAMES = dict(slab_window_dots="tile_dots", signproj_bucket_ids="signproj_kernel",
                     window_topk=("block_rows", "warp_rows", "radix_rows"),
-                    cf_predict="predict_rows")
+                    cf_predict="predict_rows", dedup_topk="d1::")
 
 
 def device_ms(fn, names, reps=5):
@@ -2932,6 +2933,75 @@ def phase25(ds):
     return res
 
 
+# D1 at the two cells' stage-1 shapes: (q, windows T, window lanes, kk, top_k,
+# slab rows n_pad, corpus rows)
+D1 = dict(cf=dict(q=73_421, T=8, win=384, kk=12, k=20, n_pad=77_824, n_rows=73_421),
+          batch=dict(q=8192, T=8, win=640, kk=40, k=40, n_pad=1_000_448, n_rows=1_000_000))
+
+
+def d1_case(c, seed):
+    """S1's lanes over random dots at a cell's shape ([q T, win] -> kk a
+    window), with random window starts into T CSR tables of pad-ended rows
+    (a table's rows in one random order, so the tables share rows as the
+    index's do)."""
+    from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, T, win, kk = c["q"], c["T"], c["win"], c["kk"]
+    s1, lane = window_topk(torch.randn(q * T, win, generator=g, device=DEV), kk)
+    aligned = torch.randint(0, c["n_pad"] - win + 1, (q, T), generator=g, device=DEV,
+                            dtype=torch.int32)
+    perm = torch.randperm(c["n_pad"], generator=g, device=DEV)
+    rows = torch.where(perm < c["n_rows"], perm, c["n_rows"]).to(torch.int32).expand(T, -1)
+    return s1.reshape(q, T * kk), lane.reshape(q, T * kk), (aligned, rows.contiguous(), win, kk)
+
+
+def phase26():
+    """D1 alone at both cells' shapes, on S1's lanes of random dots: one
+    launch, bit for bit the plain route (`lane_ids` + `dedup_topk_plain`),
+    timed against it in alternating rounds (events), the profiler's device
+    ms of the kernel, its byte bound (`bounds.dedup_call`) and the share."""
+    from crypto_rec_tpu_torch.ops.kernels import bounds
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import (
+        dedup_topk, dedup_topk_plain, lane_ids,
+    )
+
+    res = {}
+    for name, c in D1.items():
+        s1, lane, win = d1_case(c, SEED + 261)
+        n_rows, k = c["n_rows"], c["k"]
+        zero_counts()
+        got = dedup_topk(s1, lane, n_rows, k, *win)
+        torch.cuda.synchronize()
+        if read_counts()["dedup_topk"] != 1:
+            raise AssertionError(f"phase 26 {name}: {read_counts()['dedup_topk']} D1 launches")
+
+        def plain():
+            return dedup_topk_plain(s1, lane_ids(s1, lane, *win, n_rows), n_rows, k)
+
+        want = plain()
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"phase 26 {name}: D1 differs from the plain route")
+        label = f"D1 at the {name} cell's shape [{c['q']}, {s1.shape[1]}] -> {k}"
+        e = rounds_ms(dict(ms=lambda: dedup_topk(s1, lane, n_rows, k, *win),
+                           plain_ms=plain, library_ms=None))
+        e = with_bound(dict(e, geometry=label, max_abs_err=0.0),
+                       bounds.dedup_call(c["q"], s1.shape[1], k, lane.element_size(), c["T"]))
+        e["device_ms"] = device_ms(lambda: dedup_topk(s1, lane, n_rows, k, *win),
+                                   KERNEL_NAMES["dedup_topk"])
+        kept = float((got[1] >= 0).float().mean())
+        log(f"phase 26 {label}: bit for bit the plain route; {e['ms']:.4f} ms a call "
+            f"(events; plain {e['plain_ms']:.3f}), device {e['device_ms']:.4f} ms (profiler), "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{100 * e['bound_ms'] / e['device_ms']:.1f}% of it by device time; output slots "
+            f"filled {kept:.4f}; {CARD}")
+        res[name] = e
+        del s1, lane, win, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -2958,6 +3028,7 @@ def main() -> int:
     from crypto_rec_tpu_torch.models.rec.pipeline import lsh_phase
     from crypto_rec_tpu_torch.ops.kernels import build
     from crypto_rec_tpu_torch.ops.kernels.cfpredict import cf_predict
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import dedup_topk
     from crypto_rec_tpu_torch.ops.kernels.signproj import signproj_bucket_ids
     from crypto_rec_tpu_torch.ops.kernels.slabscore import (
         _window_offsets, slab_topk, slab_window_dots, window_len,
@@ -3032,7 +3103,7 @@ def main() -> int:
     nset = RatingSet(ratings=corpus, known=n_known, mean=n_mean)
     q_known = torch.rand(max(BATCHES), D, generator=kq, device=dev) < 0.6
     q_mean = (queries_all * q_known).sum(1) / q_known.sum(1).clamp(min=1)
-    counters = (signproj_bucket_ids, slab_window_dots, window_topk, cf_predict)
+    counters = (signproj_bucket_ids, slab_window_dots, window_topk, cf_predict, dedup_topk)
     S1["phase"] = 5
 
     # The counted main-path run: build, pack, retrieve and score one batch.
@@ -3246,6 +3317,9 @@ def main() -> int:
     S1["phase"] = 25
     wide = phase25(ds)
     ds_dir.cleanup()
+
+    # ---- 26. D1, the dedup top-k, alone at both cells' shapes ----
+    d1 = phase26()
     wide_k1 = [wide["cosine"]["k1"], wide["cosine"]["cube"]["k1"],
                wide["euclidean"]["k1"]] + wide["program"]["k1"] + wide["bodies"]["k1"]
 
@@ -3345,6 +3419,20 @@ def main() -> int:
                            cf_cell_shape=wide["cf"]["launches"]["cf_predict"]),
         note="the CF engine's prediction (engine.predict_scores on CUDA tensors); row: the "
              "CF cell's shape, phase 25 (e), q = 73,421, P = 20, c = 100"))
+
+    kernels.append(dict(
+        name="dedup_topk", route="cuda", source="crypto_rec_tpu_torch/csrc/deduptopk.cu",
+        replaces="none: XLA ops at crypto_rec_tpu/ops/pallas/slabscore.py:399 "
+                 "(_dedup_topk_pairs)",
+        launches=launches["dedup_topk"], max_abs_err=0.0,
+        **{key: d1["cf"].get(key) for key in row_keys}, card=CARD,
+        geometries=[d1["cf"], d1["batch"]],
+        path_launches=dict(path_launches("dedup_topk"), phases_6_7=launches67["dedup_topk"],
+                           cv=cv["launches"]["dedup_topk"],
+                           **{f"sharded {m}": sharded[m]["launches"]["dedup_topk"]
+                              for m in ("mp1", "mp4")}),
+        note="the dedup top-k epilogue (slab_topk's stage 2 and _dedup_topk_pairs on CUDA "
+             "tensors), bit for bit the plain route; row: the CF cell's shape, phase 26"))
 
     def probe_row(name, source, replaces, rows, **extra):
         """A probe kernel's row: launches from phase 12's counted run, the

@@ -29,10 +29,11 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.deduptopk import lane_rows
 from crypto_rec_tpu_torch.ops.kernels.probetile import tile_queries, tile_schedule
 from crypto_rec_tpu_torch.ops.kernels.slabscore import (
     _DTYPE_CODE, _check_tile_slab, _dedup_topk_pairs, _geometry, _window_offsets,
-    check_row_slab, lane_rows, probe_tile_rows, slab_window_dots_plain, window_len,
+    check_row_slab, probe_tile_rows, slab_window_dots_plain, window_len,
 )
 
 _TC_CODE = {t: _DTYPE_CODE[t] for t in (torch.int8, torch.bfloat16)}

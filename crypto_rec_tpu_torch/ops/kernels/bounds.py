@@ -14,7 +14,8 @@ int8 x int8 -> int32), f32 FFMA 67 TFLOP/s (K2, whose hash parity rules out
 TF32; K1 on f32 slabs, which are not exact in bf16 and take FFMA; K1's
 other rows show it as the floor of a design without tensor cores).  P2's
 load_floor does no arithmetic: 0 operations, bound by its bytes alone, as
-is S1, the stage-1 selection (`s1_call`).  The CF prediction
+is S1, the stage-1 selection (`s1_call`), and D1, the dedup top-k
+(`dedup_call`).  The CF prediction
 (`cf_predict_call`) runs f32 FFMA at well under an operation a byte: bound
 by its bytes.
 """
@@ -141,3 +142,16 @@ def cf_predict_call(q: int, P: int, c: int, n: int, id_bytes: int = 8) -> dict:
     (the gathered rows are re-reads of the table)."""
     nbytes = q * c * (4 + 1 + 4) + 4 * q + n * c * 4 + 4 * n + q * P * (4 + id_bytes + 1)
     return bound(nbytes, 2.0 * q * P * c, F32_FFMA)
+
+
+def dedup_call(q: int, m: int, k: int, id_bytes: int = 8, T: int = 0) -> dict:
+    """D1's bound (`dedup_topk`): scores [q, m] f32 and ids or lanes [q, m]
+    of id_bytes read once; in the lanes form (T windows a row) also the
+    aligned starts [q, T] int32 and each lane's 4-byte row id, gathered from
+    the windows' rows; scores [q, min(k, m)] f32 and ids int32 written
+    once.  Its comparisons run on no unit with a published peak: bound by
+    its bytes."""
+    nbytes = q * m * (4 + id_bytes) + q * min(k, m) * 8
+    if T:
+        nbytes += q * T * 4 + q * m * 4
+    return bound(nbytes, 0.0, None)

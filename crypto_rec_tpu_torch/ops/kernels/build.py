@@ -57,6 +57,9 @@ _SIGNATURES = {
     # (q_ratings, q_known, q_mean, n_ratings, n_mean, sims, ids, valid, out,
     #  q, P, c, n, id_bytes, stream)
     "crt_cf_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (scores, ids, aligned, rows, out_s, out_i, kept,
+    #  q, m, k, n_rows, id_bytes, T, n_pad, win, kk, stream)
+    "crt_dedup_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

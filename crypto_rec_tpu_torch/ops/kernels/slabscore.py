@@ -18,8 +18,10 @@ aligned[q, t] + j.  mask=True sets lanes outside [head, head + size) to
 the aligned overfetch scores real neighbouring CSR rows, a free multiprobe,
 and pad-sentinel rows are dropped by id in the epilogue.
 
-The epilogue (`slab_topk`, `_dedup_topk_pairs`) is plain torch, as the JAX
-package ran it outside Pallas, but for its stage-1 selection: S1
+The epilogue (`slab_topk`) is two kernels on the card where the JAX package
+ran XLA ops outside Pallas: the dedup top-k is D1
+(`ops/kernels/deduptopk.dedup_topk`, `csrc/deduptopk.cu`; the plain
+sort-dedup on CPU tensors), and the stage-1 selection S1
 (`ops/kernels/windowtopk.window_topk`, the Hopper kernel
 `csrc/windowtopk.cu` on CUDA tensors, `topk_desc` on CPU ones) per table
 window where the TPU ran `approx_max_k` (recall target 0.9), and flat
@@ -46,8 +48,8 @@ from typing import Tuple
 import torch
 
 from crypto_rec_tpu_torch.ops.kernels import build
+from crypto_rec_tpu_torch.ops.kernels.deduptopk import dedup_topk
 from crypto_rec_tpu_torch.ops.kernels.windowtopk import window_topk
-from crypto_rec_tpu_torch.ops.topk import topk_desc
 from crypto_rec_tpu_torch.utils import timing
 
 ALIGN = 32         # window starts align down to this many rows
@@ -436,46 +438,9 @@ def _count_lanes(packed, starts, sizes, per_table: int) -> None:
 slab_window_dots.launches = 0
 
 
-def _dedup_topk_pairs(
-    scores: torch.Tensor,   # [q, m] with -inf pads
-    ids: torch.Tensor,      # [q, m] with sentinel >= n_rows on pads
-    n_rows: int,
-    top_k: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-dedup (score, id) pairs by id and re-select top_k: a stable
-    sort of the ids, scores gathered by the returned permutation; equal
-    scores keep the lower id first (`topk_desc`), as `lax.top_k` does."""
-    raw_sorted, perm = torch.sort(ids, dim=1, stable=True)
-    s_sorted = torch.gather(scores, 1, perm)
-    dup = torch.zeros_like(raw_sorted, dtype=torch.bool)
-    dup[:, 1:] = raw_sorted[:, 1:] == raw_sorted[:, :-1]
-    s_sorted = torch.where(
-        dup | (raw_sorted >= n_rows) | ~torch.isfinite(s_sorted),
-        float("-inf"), s_sorted,
-    )
-    s2, pos2 = topk_desc(s_sorted, top_k)
-    ids_sorted = torch.clamp(raw_sorted, max=n_rows - 1)
-    out_ids = torch.where(
-        s2 > float("-inf"), torch.gather(ids_sorted, 1, pos2), -1
-    )
-    return s2, out_ids.to(torch.int32)
-
-
-def lane_rows(
-    pos: torch.Tensor,             # [q, m] flat lanes in [0, T * win)
-    aligned_starts: torch.Tensor,  # [q, T] local CSR positions of lane 0
-    packed_rows: torch.Tensor,     # [T, n_pad] int32 CSR-ordered row ids
-    win: int,
-) -> torch.Tensor:
-    """Row ids of flat window lanes: table pos // win, CSR position
-    aligned + pos % win, clamped to the slab."""
-    n_pad = packed_rows.shape[1]
-    pos = pos.long()
-    l_of = torch.div(pos, win, rounding_mode="floor")
-    gpos = l_of * n_pad + torch.clamp(
-        torch.gather(aligned_starts.long(), 1, l_of) + pos % win, max=n_pad - 1
-    )
-    return packed_rows.reshape(-1)[gpos]
+# the JAX function's name, which the resolved-id callers import: D1 on the
+# card, the plain sort-dedup on the CPU
+_dedup_topk_pairs = dedup_topk
 
 
 def slab_topk(
@@ -499,9 +464,9 @@ def slab_topk(
     contains the global dedup top-k.  stage1_per_table overrides kk below
     top_k (relaxing that guarantee to kk, the top-P > 10 CF form).
     exact=True, or a stage1_width without stage1_per_table, selects the
-    flat top min(L * top_k, stage1_width) over [q, T * win].  Stage 2
-    gathers the survivors' row ids from packed_rows and sort-dedups to the
-    final top_k.
+    flat top min(L * top_k, stage1_width) over [q, T * win].  Stage 2 is
+    D1 on S1's lanes (`dedup_topk`'s lanes form): each lane's row id from
+    packed_rows, the id dedup, the final top_k; one launch on the card.
 
     -> (scores [q, top_k] descending, row ids [q, top_k] int32, -1 pad)."""
     q, L, win = dots.shape
@@ -509,19 +474,16 @@ def slab_topk(
         kk = min(max(stage1_per_table or top_k, -(-top_k // L)), win)
         with timing.span("s1"):
             s1, lane = window_topk(dots.reshape(q * L, win), kk)
-        s1 = s1.reshape(q, L * kk)
-        l_base = torch.arange(L, device=dots.device)[None, :, None] * win
-        pos1 = (l_base + lane.reshape(q, L, kk)).reshape(q, L * kk)
+        s1, lane = s1.reshape(q, L * kk), lane.reshape(q, L * kk)
     else:
+        kk = 0
         m1 = min(L * top_k, L * win)
         if stage1_width:
             m1 = min(m1, max(stage1_width, top_k))
         with timing.span("s1"):
-            s1, pos1 = window_topk(dots.reshape(q, L * win), m1)
+            s1, lane = window_topk(dots.reshape(q, L * win), m1)
     with timing.span("dedup"):
-        ids1 = lane_rows(pos1, aligned_starts, packed_rows, win)
-        ids1 = torch.where(s1 > float("-inf"), ids1, n_rows)
-        return _dedup_topk_pairs(s1, ids1, n_rows, top_k)
+        return dedup_topk(s1, lane, n_rows, top_k, aligned_starts, packed_rows, win, kk)
 
 
 def _window_offsets(bucket_starts, q_buckets, per_table, salt=None):

@@ -35,11 +35,12 @@ def tracing() -> bool:
 
 
 def _launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' own launch counters (K1, S1, K2)."""
-    from crypto_rec_tpu_torch.ops.kernels import signproj, slabscore, windowtopk
+    """The kernel wrappers' own launch counters (K1, S1, D1, K2)."""
+    from crypto_rec_tpu_torch.ops.kernels import deduptopk, signproj, slabscore, windowtopk
 
     return {"slab_window_dots": slabscore.slab_window_dots.launches,
             "window_topk": windowtopk.window_topk.launches,
+            "dedup_topk": deduptopk.dedup_topk.launches,
             "signproj_bucket_ids": signproj.signproj_bucket_ids.launches}
 
 
@@ -138,6 +139,22 @@ class Tracer:
             return
         self.counters[name] = self.counters.get(name, 0) + value
 
+    def device_total(self, name: str, device) -> Optional[torch.Tensor]:
+        """While tracing, counter `name` as a 0-d int64 tensor on `device`
+        for a kernel to add into (made from what the counter held, zero at
+        first; no synchronise); off, None."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return None
+        v = self.counters.get(name, 0)
+        if isinstance(v, torch.Tensor) and v.dim() == 0 and v.dtype == torch.int64 \
+                and v.device == torch.device(device):
+            return v
+        t = torch.zeros((), dtype=torch.int64, device=device)
+        if isinstance(v, torch.Tensor) or v:
+            t += v
+        self.counters[name] = t
+        return t
+
     def snapshot(self) -> dict:
         """One synchronise of the devices the spans ran on, then:
         spans: {path: {calls, host_ms, stream_ms}}, a path being the span's
@@ -163,6 +180,7 @@ class Tracer:
 TRACER = Tracer()
 span = TRACER.span
 count = TRACER.count
+device_total = TRACER.device_total
 snapshot = TRACER.snapshot
 reset = TRACER.reset
 

@@ -1551,3 +1551,167 @@ def test_tracing_adds_no_synchronise(cuda):
         traced = syncs()
     assert timing.snapshot()["spans"]["retrieve"]["calls"] == 2
     assert traced <= untraced
+
+
+# ---- D1: the dedup top-k epilogue (csrc/deduptopk.cu) ----
+
+D1_LEVELS = [-1.0, -0.0, 0.0, 0.5, 2.0, float("nan"), float("inf"), float("-inf")]
+
+
+def _d1_scores(g, q, m, dev, tied):
+    """Random scores, or (tied) scores on a few levels: equal values at
+    distinct ids, +-0.0, NaN, +-inf."""
+    if not tied:
+        return torch.randn(q, m, generator=g, device=dev)
+    levels = torch.tensor(D1_LEVELS, device=dev)
+    return levels[torch.randint(0, len(levels), (q, m), generator=g, device=dev)]
+
+
+def _d1_resolved(dev, q, m, n_rows, span, tied, id_dtype, seed):
+    """Scores and ids drawn from `span` values a row (repeats, each with
+    its own score), up to n_rows + 2 (pads), rows 0-2 all pads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = _d1_scores(g, q, m, dev, tied)
+    base = torch.randint(0, max(1, n_rows + 3 - span), (q, 1), generator=g, device=dev)
+    ids = torch.randint(0, span, (q, m), generator=g, device=dev) + base
+    ids[: min(3, q)] = n_rows + 1
+    return s, ids.to(id_dtype)
+
+
+def _d1_lanes(dev, q, T, win, kk, n_pad, n_rows, tied, lane_dtype, seed):
+    """S1-shaped lanes: per-table (kk lanes of each window, m = T kk) or
+    flat (kk = 0, m = 5 T), windows whose rows hold pad sentinels, lanes
+    past the slab's end, rows 0-2 all -inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = T * kk if kk else 5 * T
+    s = _d1_scores(g, q, m, dev, tied)
+    s[: min(3, q)] = float("-inf")
+    lanes = torch.randint(0, win if kk else T * win, (q, m), generator=g, device=dev)
+    aligned = torch.randint(0, n_pad - win // 2, (q, T), generator=g, device=dev,
+                            dtype=torch.int32)
+    rows = torch.stack([torch.randperm(n_pad, generator=g, device=dev) for _ in range(T)])
+    rows = torch.where(rows < n_rows, rows, n_rows).to(torch.int32)
+    return s, lanes.to(lane_dtype), aligned, rows, win, kk
+
+
+def _d1_against_plain(s, ids, n_rows, k, windows=()):
+    """D1 on the card (one launch) against the plain route on the same card
+    tensors: scores to the bit, ids exactly."""
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import (
+        dedup_topk, dedup_topk_plain, lane_ids,
+    )
+
+    before = dedup_topk.launches
+    got = dedup_topk(s, ids, n_rows, k, *windows)
+    torch.cuda.synchronize()
+    assert dedup_topk.launches == before + 1
+    plain_ids = lane_ids(s, ids, windows[0], windows[1], windows[2], windows[3], n_rows) \
+        if windows else ids
+    want = dedup_topk_plain(s, plain_ids, n_rows, k)
+    assert got[0].shape == want[0].shape and got[1].dtype == torch.int32
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("q,m,k,n_rows,span", [
+    (73_421, 96, 20, 73_421, 60),       # the CF cell's shape
+    (8192, 320, 40, 1_000_000, 200),    # the batch cell's
+    (5000, 37, 20, 5000, 20),           # m not a multiple of 32
+    (3000, 1000, 64, 50_000, 700),      # the warp path's last width
+    (2000, 1025, 40, 50_000, 800),      # the block path's first
+    (500, 8192, 100, 50_000, 6000),     # the block path's last
+    (4000, 96, 96, 4000, 30),           # top_k >= the distinct ids
+    (3000, 320, 100, 1_000_000, 100_000),  # more than 64 winners: the warp's sort
+    (4000, 64, 200, 4000, 10),          # top_k past m
+])
+def test_dedup_kernel_equals_plain_on_resolved_ids(cuda, q, m, k, n_rows, span, id_dtype,
+                                                   tied):
+    """Resolved ids: repeated ids with differing scores (the first
+    occurrence decides), all-pad rows, ties, +-0.0, NaN and +inf scores."""
+    s, ids = _d1_resolved(cuda, q, m, n_rows, span, tied, id_dtype, seed=q + m + k)
+    _d1_against_plain(s, ids, n_rows, k)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("lane_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("q,T,win,kk,k,n_pad,n_rows", [
+    (73_421, 8, 384, 12, 20, 77_824, 73_421),    # the CF cell's per-table stage 1
+    (8192, 8, 640, 40, 40, 1_000_448, 1_000_000),  # the batch cell's
+    (3000, 8, 384, 0, 20, 40_000, 39_000),       # flat lanes, m = 40
+    (2000, 64, 256, 10, 10, 40_000, 39_000),     # the euclidean cube's 640
+    (1000, 8, 256, 130, 50, 40_000, 39_000),     # 1,040 lanes: the block path
+])
+def test_dedup_kernel_equals_plain_on_lanes(cuda, q, T, win, kk, k, n_pad, n_rows,
+                                            lane_dtype, tied):
+    """S1's lanes with their windows: the kernel's row ids (window, CSR
+    position clamped to the slab, pad sentinels, -inf and NaN lanes as pads)
+    and dedup against `lane_ids` + the plain route."""
+    args = _d1_lanes(cuda, q, T, win, kk, n_pad, n_rows, tied, lane_dtype, seed=q + kk)
+    s, lanes, windows = args[0], args[1], args[2:]
+    _d1_against_plain(s, lanes, n_rows, k, windows)
+
+
+def test_dedup_kernel_first_occurrence_decides(cuda):
+    """A row's later duplicates never win, whatever they score: the first
+    occurrence's score comes back (a NaN or +inf first occurrence drops the
+    id), and a run repeats bit for bit."""
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import dedup_topk
+
+    q, m = 4096, 96
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ids = torch.randint(0, 40, (q, m), generator=g, device=cuda)
+    s = torch.rand(q, m, generator=g, device=cuda)
+    srt = torch.sort(ids, dim=1, stable=True)
+    head = torch.ones_like(srt.values, dtype=torch.bool)
+    head[:, 1:] = srt.values[:, 1:] != srt.values[:, :-1]
+    first = torch.zeros_like(head).scatter_(1, srt.indices, head)
+    s = torch.where(first, s, s + 10.0)               # duplicates score higher
+    s[::7, 0] = float("nan")
+    s[1::7, 0] = float("inf")
+    got = _d1_against_plain(s, ids, 1000, 20)
+    assert (got[0][got[1] >= 0] < 10.0).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, dedup_topk(s, ids, 1000, 20)))
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_slab_topk_and_retrieval_on_the_card_equal_the_cpu(cuda, strict):
+    """slab_topk (both stage-1 forms) and packed_retrieve_pallas on card
+    tensors return what the same calls return on CPU tensors, on exact dots
+    (integer slab rows, one-hot queries), each with one D1 launch."""
+    from crypto_rec_tpu_torch.ops.kernels.deduptopk import dedup_topk
+    from crypto_rec_tpu_torch.ops.kernels.slabscore import packed_retrieve_pallas, slab_topk
+
+    g = torch.Generator().manual_seed(21)
+    q, L, win, n_pad, n_rows, d, nb = 2048, 8, 384, 8192, 8000, 128, 64
+    dots = torch.randint(-4, 5, (q, L, win), generator=g).float()
+    dots[:, :, 300:] = float("-inf")
+    a0 = torch.randint(0, n_pad - win, (q, L), generator=g, dtype=torch.int32)
+    rows = torch.stack([torch.randperm(n_pad, generator=g) for _ in range(L)])
+    rows = torch.where(rows < n_rows, rows, n_rows).to(torch.int32)
+    kw = dict(exact=True) if strict else dict(exact=False, stage1_per_table=12)
+    want = slab_topk(dots, a0, rows, n_rows, 20, **kw)
+    before = dedup_topk.launches
+    got = slab_topk(dots.to(cuda), a0.to(cuda), rows.to(cuda), n_rows, 20, **kw)
+    torch.cuda.synchronize()
+    assert dedup_topk.launches == before + 1
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+
+    packed = torch.randint(-3, 4, (L, n_pad, d), generator=g).to(torch.int8)
+    sizes = torch.randint(0, 400, (L, nb), generator=g)
+    sizes = (sizes * n_rows / sizes.sum(1, keepdim=True)).long()
+    sizes[:, -1] += n_rows - sizes.sum(1)
+    bucket_starts = torch.cat([torch.zeros(L, 1, dtype=torch.long), sizes.cumsum(1)], 1)
+    queries = torch.nn.functional.one_hot(torch.arange(q) % d, d).float()
+    q_buckets = torch.randint(0, nb, (q, L), generator=g, dtype=torch.int32)
+    args = (packed, rows, bucket_starts.int(), n_rows, queries, q_buckets, 20, 200)
+    want = packed_retrieve_pallas(*args, strict=strict, stage1_per_table=0 if strict else 12)
+    before = dedup_topk.launches
+    got = packed_retrieve_pallas(*(a.to(cuda) if torch.is_tensor(a) else a for a in args),
+                                 strict=strict, stage1_per_table=0 if strict else 12)
+    torch.cuda.synchronize()
+    assert dedup_topk.launches == before + 1
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
